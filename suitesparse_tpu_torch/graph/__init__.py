@@ -1,0 +1,4 @@
+from .structure import (etree, postorder, col_counts, ereach, reach,
+                        tree_levels, tree_depth_below, firstdesc,
+                        chol_symbolic_flops)
+from .partition import edge_cut, vertex_separator, EdgeCutOptions, EdgeCutResult
