@@ -9,9 +9,14 @@ port's main path -- supernodal Cholesky analysis, pass-forward factor,
 refactorization, inverted diagonal blocks, device-resident solves and
 float64 iterative refinement -- on two full-size stand-in matrices
 (lap3d_44, n = 85,184; fem3d_80000, an irregular tetrahedral mesh), and
-checks what comes out.  Any failed check raises and the script exits
-nonzero; nothing is caught and carried on.  Without a CUDA device, or
-without the package beside it, it exits nonzero and prints no result.
+checks what comes out.  Then it drives the sparse-product slice: on
+lap3d_44's full symmetric pattern the BCSR product (the ``bcsr_spmm``
+kernel), the segment SpMM program, sfmult, the Gustavson SpGEMM, ssmult
+and a min_plus mxv, each against a host oracle; and on two graphs of
+n = 1,000,000 PageRank, BFS (device pull and host push) and triangle
+counting.  Any failed check raises and the script exits nonzero; nothing
+is caught and carried on.  Without a CUDA device, or without the package
+beside it, it exits nonzero and prints no result.
 
 It also profiles one refactorization of each matrix with torch.profiler:
 the Chrome trace goes to ``build/profiles/profile_<matrix>.json`` (~30 MB
@@ -42,8 +47,12 @@ RESIDUAL_MAX = 1e-11          # after 3 float64 refinement steps
 # data sheet, 700 W); the batched Cholesky runs on the CUDA cores
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-KERNELS = ("block_chol",)     # the port's CUDA sources, csrc/<name>.cu
+# the port's CUDA sources, csrc/<name>.cu
+KERNELS = ("block_chol", "bcsr_spmm")
 REFACTOR_REPS = 5
+OPS_MATRIX = "lap3d_44"
+BCSR_K = (32, 128)            # right-hand-side widths of the BCSR product
+GRAPH_N = 1_000_000
 # kernel-name fragments of each device-time group in a profile
 GROUPS = (("block_chol", ("block_chol",)),
           ("gemm", ("gemm", "gemv", "cutlass", "xmma", "cublas")),
@@ -129,8 +138,11 @@ def phase_setup():
     log(f"[setup] native/libsstpu.so loaded: {lib is not None} "
         f"({'native AMD/partitioner' if lib is not None else 'Python fallbacks'})")
     t0 = time.perf_counter()
-    for name in KERNELS:
-        cuda_build.build(name)
+    # one nvcc per source, all started together
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        for fut in [pool.submit(cuda_build.build, n) for n in KERNELS]:
+            fut.result()
     log(f"[setup] built {list(KERNELS)} with {cuda_build.nvcc()} in "
         f"{time.perf_counter() - t0:.2f} s")
     for name in KERNELS:
@@ -429,6 +441,322 @@ def kernel_line(shapes, launches, dev_kind):
                 timed_as="one lap3d_44 factor's launches, shape by shape")
 
 
+# -- the sparse-product slice ----------------------------------------------
+
+def rel_err_np(a, b) -> float:
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def random_bcsr(rng, m, n, density):
+    import scipy.sparse as sp
+    from suitesparse_tpu_torch.core.sparse import SparseCSC
+    from suitesparse_tpu_torch.ops.spmv import to_bcsr
+    S = sp.random(m, n, density, random_state=rng, format="csc")
+    return S, to_bcsr(SparseCSC.from_scipy(S))
+
+
+def bcsr_vs_plain(bc, X):
+    """(kernel result, plain result, relative error) on the card."""
+    from suitesparse_tpu_torch.ops.spmv import bcsr_spmm, bcsr_spmm_plain
+    blocks, cols = bc.device_arrays(X.device)
+    K = bcsr_spmm(bc, X)
+    P = bcsr_spmm_plain(blocks, cols, X, bc.nslots, bc.shape)
+    sync()
+    return K, P, rel_err(K, P)
+
+
+def phase_bcsr_vs_plain():
+    """bcsr_spmm kernel vs its plain version on seeded random BCSR: one
+    block, m and n not multiples of 128, k in {1, 50, 130}, rows with pad
+    slots.  Tolerance 1e-5 relative in float32: both sum up to
+    128 * nslots products in float32, in another order."""
+    import torch
+    rng = np.random.default_rng(5)
+    worst = 0.0
+    for m, n, d, k in ((90, 100, 0.3, 1), (128, 128, 0.2, 50),
+                       (1000, 700, 0.01, 1), (1000, 700, 0.01, 50),
+                       (1000, 700, 0.01, 130), (700, 1100, 0.0001, 7),
+                       (3000, 2500, 0.002, 64)):
+        S, bc = random_bcsr(rng, m, n, d)
+        X = torch.as_tensor(rng.standard_normal((n, k)),
+                            dtype=torch.float32, device="cuda")
+        K, P, err = bcsr_vs_plain(bc, X)
+        nz = (bc.blocks.reshape(bc.nrb, bc.nslots, -1) != 0).any(2).sum(1)
+        check(tuple(K.shape) == (m, k) and bool(torch.isfinite(K).all()),
+              f"bcsr_spmm shape/finiteness at m={m} n={n} k={k}")
+        check(err <= 1e-5, f"bcsr_spmm vs plain m={m} n={n} k={k}: {err:.2e}")
+        ref = S @ X.double().cpu().numpy()
+        check(rel_err_np(K.double().cpu().numpy(), ref) <= 1e-5,
+              f"bcsr_spmm vs scipy m={m} n={n} k={k}")
+        worst = max(worst, err)
+        log(f"[kernel] bcsr_spmm m={m} n={n} k={k}: nrb={bc.nrb} "
+            f"nslots={bc.nslots} pad slots={int((bc.nslots - nz).sum())} "
+            f"vs plain {err:.3e}")
+    log(f"[kernel] bcsr_spmm vs plain, random cases: max relative error "
+        f"{worst:.3e} (tol 1e-5)")
+
+
+def ops_matrix():
+    """lap3d_44's full symmetric pattern in float32, and its scipy form."""
+    from suitesparse_tpu_torch.core.sparse import SparseCSC
+    from suitesparse_tpu_torch.io.generators import synthetic_standin
+    A = synthetic_standin(OPS_MATRIX).to_full_storage()
+    A = SparseCSC(A.indptr, A.indices, A.data.astype(np.float32), A.shape)
+    return A, A.to_scipy().astype(np.float64)
+
+
+def run_ops(A, S):
+    """The slice's products on lap3d_44, each against a host float64
+    oracle; returns (row, BCSR, {k: X})."""
+    import torch
+    from suitesparse_tpu_torch.graphblas import mxv
+    from suitesparse_tpu_torch.models import sfmult, ssmult
+    from suitesparse_tpu_torch.ops import (bcsr_spmm, spgemm, spmm_program,
+                                           to_bcsr)
+    n = A.ncol
+    t_bcsr, bc = host_time(lambda: to_bcsr(A))
+    check(bc.nrb * bc.nslots == 666 * 7,
+          f"lap3d_44 BCSR is {bc.nrb} x {bc.nslots}, expected 666 x 7")
+    real = int((bc.blocks.reshape(bc.nrb * bc.nslots, -1) != 0).any(1).sum())
+    log(f"[ops] {OPS_MATRIX} n={n} nnz={A.nnz}: to_bcsr {t_bcsr:.2f} s, "
+        f"{bc.nrb} block rows x {bc.nslots} slots ({real} nonzero blocks, "
+        f"{bc.blocks.nbytes / 1e6:.1f} MB of float32 blocks)")
+    rng = np.random.default_rng(6)
+    row = dict(matrix=OPS_MATRIX, n=n, nnz=A.nnz, to_bcsr_s=t_bcsr,
+               nrb=bc.nrb, nslots=bc.nslots, nonzero_blocks=real)
+    Xs = {}
+    for k in BCSR_K:
+        Xh = rng.standard_normal((n, k)).astype(np.float32)
+        X = torch.as_tensor(Xh, device="cuda")
+        Xs[k] = X
+        ref = S @ Xh.astype(np.float64)
+        t, Y = host_time(lambda: bcsr_spmm(bc, X))
+        e_bcsr = rel_err_np(Y.double().cpu().numpy(), ref)
+        check(tuple(Y.shape) == (n, k) and e_bcsr <= 1e-5,
+              f"bcsr_spmm k={k} vs scipy: {e_bcsr:.2e}")
+        run = spmm_program(A, device="cuda")
+        Z = run(A.data, X)
+        e_seg = rel_err_np(Z.double().cpu().numpy(), ref)
+        check(Z.dtype == torch.float32 and e_seg <= 1e-5,
+              f"spmm_program k={k} vs scipy: {e_seg:.2e}")
+        # no atomics on either path: a second call is bit-identical
+        check(torch.equal(bcsr_spmm(bc, X), Y)
+              and torch.equal(run(A.data, X), Z),
+              f"k={k}: a repeated product is not bit-identical")
+        ts, F = host_time(lambda: sfmult(A, Xh, device="cuda"))
+        e_sf = rel_err_np(F.astype(np.float64), ref)
+        check(e_sf <= 1e-5, f"sfmult k={k} vs scipy: {e_sf:.2e}")
+        log(f"[ops] k={k}: bcsr_spmm {e_bcsr:.3e} (first call {t * 1e3:.2f} "
+            f"ms), spmm_program {e_seg:.3e}, sfmult {e_sf:.3e} "
+            f"({ts:.2f} s, {k} column programs) relative to scipy float64; "
+            f"repeated products bit-identical")
+        row[f"rel_err_k{k}"] = dict(bcsr_spmm=e_bcsr, spmm_program=e_seg,
+                                    sfmult=e_sf)
+    ref = (S @ S).tocsc()
+    ref.sort_indices()
+    prods = []
+    for name, fn in (("spgemm", lambda: spgemm(A, A, device="cuda")),
+                     ("ssmult", lambda: ssmult(A, A, device="cuda"))):
+        t, C = host_time(fn)
+        prods.append(C.data)
+        check(np.array_equal(C.indptr, ref.indptr)
+              and np.array_equal(C.indices, ref.indices),
+              f"{name}(A, A) pattern differs from scipy's")
+        e = rel_err_np(C.data.astype(np.float64), ref.data)
+        check(C.data.dtype == np.float32 and e <= 1e-5,
+              f"{name}(A, A) values vs scipy: {e:.2e}")
+        log(f"[ops] {name}(A, A): nnz {C.nnz}, pattern identical, values "
+            f"{e:.3e} relative to scipy float64; {t:.2f} s "
+            f"(plan cached after the first)")
+        row[f"{name}_s"] = t
+        row[f"{name}_rel_err"] = e
+    check(np.array_equal(prods[0], prods[1]),
+          "spgemm and ssmult (the same program) are not bit-identical")
+    x = rng.uniform(-1, 1, n).astype(np.float32)
+    t, y = host_time(lambda: mxv(A, x, "min_plus", device="cuda"))
+    Sr = A.to_scipy().tocsr()
+    terms = Sr.data + x[Sr.indices]                       # float32, as y
+    want = np.minimum.reduceat(terms, Sr.indptr[:-1])
+    check(bool(np.array_equal(y.cpu().numpy(), want)),
+          "mxv min_plus differs from the numpy oracle")
+    log(f"[ops] mxv min_plus: identical to the numpy oracle ({t * 1e3:.1f} "
+        f"ms, first call)")
+    row["mxv_min_plus_ms"] = t * 1e3
+    return row, bc, Xs
+
+
+def ring_chords(n, seed):
+    """Ring + 3n random chords: connected, ~4 edges a vertex (the JAX
+    package's at-scale algorithm tests)."""
+    import scipy.sparse as sp
+    from suitesparse_tpu_torch.core.sparse import SparseCSC
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([np.arange(n), rng.integers(0, n, 3 * n)])
+    dst = np.concatenate([(np.arange(n) + 1) % n, rng.integers(0, n, 3 * n)])
+    keep = src != dst
+    S = sp.csc_matrix((np.ones(keep.sum()), (src[keep], dst[keep])),
+                      shape=(n, n))
+    S.sum_duplicates()
+    S.data[:] = 1.0
+    return SparseCSC.from_scipy(S)
+
+
+def symmetric_random(n, seed):
+    """Symmetrized random graph with 4n edges (the same tests')."""
+    import scipy.sparse as sp
+    from suitesparse_tpu_torch.core.sparse import SparseCSC
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, 4 * n)
+    dst = rng.integers(0, n, 4 * n)
+    keep = src != dst
+    S = sp.csc_matrix((np.ones(keep.sum()), (src[keep], dst[keep])),
+                      shape=(n, n))
+    return SparseCSC.from_scipy(((S + S.T) != 0).astype(float).tocsc())
+
+
+def pagerank_oracle(A, damping=0.85, tol=1e-9, max_iter=30):
+    """numpy float64 power iteration with the reference's stopping rule;
+    returns (rank, iterations)."""
+    n = A.shape[0]
+    rows = A.indices
+    cols = np.repeat(np.arange(n), np.diff(A.indptr))
+    w = 1.0 / np.maximum(np.bincount(rows, minlength=n), 1)[rows]
+    r = np.full(n, 1.0 / n)
+    delta, it = np.inf, 0
+    while delta > tol and it < max_iter:
+        y = np.bincount(cols, weights=w * r[rows], minlength=n)
+        rnew = damping * y + (1.0 - damping) / n
+        rnew = rnew + (r.sum() - rnew.sum()) / n
+        delta = np.abs(rnew - r).sum()
+        r, it = rnew, it + 1
+    return r, it
+
+
+def run_graph():
+    """PageRank, BFS and triangle counting at n = GRAPH_N on the card."""
+    import scipy.sparse as sp
+    from suitesparse_tpu_torch.graphblas import (bfs_levels, pagerank,
+                                                 triangle_count)
+    n = GRAPH_N
+    t_gen, G = host_time(lambda: ring_chords(n, 21))
+    row = dict(n=n, ring_chords_nnz=G.nnz, gen_s=t_gen)
+    t_pr, pr = host_time(lambda: pagerank(G, max_iter=30, device="cuda"))
+    want, iters = pagerank_oracle(G)
+    e = rel_err_np(pr.astype(np.float64), want)
+    check(np.array_equal(pagerank(G, max_iter=30, device="cuda"), pr),
+          "a second pagerank is not bit-identical")
+    # the iteration the port stopped at: the least cap that gives the same
+    # ranks (a cap at or past the stop changes nothing), by bisection
+    lo, hi = 1, 30
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if np.array_equal(pagerank(G, max_iter=mid, device="cuda"), pr):
+            hi = mid
+        else:
+            lo = mid + 1
+    port_iters = lo
+    check(pr.shape == (n,) and abs(float(pr.sum()) - 1.0) <= 1e-3,
+          f"pagerank sum {pr.sum()}")
+    check(e <= 1e-5, f"pagerank vs numpy power iteration: {e:.2e}")
+    log(f"[graph] ring+chords n={n} nnz={G.nnz}: pagerank {t_pr:.3f} s "
+        f"({port_iters} iterations = host syncs; the float64 oracle "
+        f"stopped at {iters}), sum {pr.sum():.6f}, "
+        f"{e:.3e} relative to numpy float64; a second run bit-identical")
+    t_dev, lv = host_time(lambda: bfs_levels(G, 0, "device",
+                                                   device="cuda"))
+    t_push, lp = host_time(lambda: bfs_levels(G, 0, "push"))
+    check(lv.dtype == np.int32 and np.array_equal(lv, lp),
+          "bfs device differs from push")
+    check(bool((lv >= 0).all()), "bfs: the ring graph is connected")
+    log(f"[graph] bfs from 0: device {t_dev:.3f} s, push {t_push:.3f} s, "
+        f"identical, depth {int(lv.max())} (one host sync a level)")
+    H = symmetric_random(n, 23)
+    t_tc, tc = host_time(lambda: triangle_count(H, device="cuda"))
+    t_tc2, tc2 = host_time(lambda: triangle_count(H, device="cuda"))
+    L = sp.tril(H.to_scipy(), -1).tocsc()
+    want_tc = int((L @ L.T).multiply(L).sum())
+    check(tc == tc2 == want_tc, f"triangle_count {tc} vs scipy {want_tc}")
+    log(f"[graph] symmetric random n={n} nnz={H.nnz}: triangle_count "
+        f"{tc} = scipy's; {t_tc:.2f} s with the host plan, {t_tc2:.2f} s "
+        f"with the plan cached")
+    row.update(pagerank_s=t_pr, pagerank_iters=port_iters,
+               pagerank_oracle_iters=iters, pagerank_rel_err=e,
+               bfs_device_s=t_dev, bfs_push_s=t_push, bfs_depth=int(lv.max()),
+               symmetric_nnz=H.nnz, triangles=tc, triangle_s=t_tc,
+               triangle_cached_s=t_tc2)
+    return row
+
+
+def bcsr_kernel_line(bc, Xs, launches, dev_kind):
+    """Time bcsr_spmm on lap3d_44's block table at each k, beside its plain
+    version, its bound and torch's BSR product (cuSPARSE, a yardstick the
+    port never calls)."""
+    import torch
+    from suitesparse_tpu_torch.ops.spmv import bcsr_spmm, bcsr_spmm_plain
+    blocks, cols = bc.device_arrays(torch.device("cuda"))
+    m, n = bc.shape
+    ncb = -(-n // bc.bk)
+    # the library's BSR holds only the nonzero blocks (pad slots dropped)
+    keep = (blocks.reshape(blocks.shape[0], -1) != 0).any(1)
+    counts = keep.view(bc.nrb, bc.nslots).sum(1)
+    crow = torch.zeros(bc.nrb + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = torch.cumsum(counts, 0)
+    B = torch.sparse_bsr_tensor(crow, cols[keep].long(), blocks[keep],
+                                size=(bc.nrb * bc.bm, ncb * bc.bk))
+    nslot = bc.nrb * bc.nslots
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+               bytes_ms=0.0, ops_ms=0.0)
+    extra = {}
+    max_abs = 0.0
+    for k in BCSR_K:
+        X = Xs[k]
+        K, P, err = bcsr_vs_plain(bc, X)
+        check(err <= 1e-5, f"bcsr_spmm vs plain on {OPS_MATRIX}'s block "
+              f"table, k={k}: {err:.2e}")
+        max_abs = max(max_abs, float((K - P).abs().max()))
+        Xp = torch.zeros((ncb * bc.bk, k), device="cuda")
+        Xp[:n] = X
+        Z = (B @ Xp)[:m]
+        check(rel_err(Z, P) <= 1e-5, f"BSR library product k={k}")
+        ms = event_ms(lambda: bcsr_spmm(bc, X), 50)
+        plain = event_ms(lambda: bcsr_spmm_plain(blocks, cols, X, bc.nslots,
+                                                 bc.shape), 20)
+        lib = event_ms(lambda: B @ Xp, 20)
+        # every slot is a dense 128 x 128 x k product (pad slots included,
+        # as the kernel computes them); each input read once, the output
+        # written once
+        flops = nslot * 2 * bc.bm * bc.bk * k
+        nbytes = blocks.numel() * 4 + cols.numel() * 4 + X.numel() * 4 \
+            + m * k * 4
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"[kernel] bcsr_spmm {OPS_MATRIX} k={k}: {ms:.4f} ms "
+            f"({flops / ms / 1e9:.2f} TFLOP/s; plain {plain:.4f} ms, bound "
+            f"{bound:.4f} ms by {by}, torch BSR @ dense {lib:.4f} ms) "
+            f"vs plain {err:.3e} on {dev_kind}")
+        for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
+                       ("library_ms", lib), ("bytes_ms", t_bytes),
+                       ("ops_ms", t_ops)):
+            tot[key] += v
+        extra.update({f"ms_k{k}": ms, f"plain_ms_k{k}": plain,
+                      f"bound_ms_k{k}": bound, f"bound_by_k{k}": by,
+                      f"library_ms_k{k}": lib})
+    return dict(name="bcsr_spmm", route="cuda",
+                source="suitesparse_tpu_torch/csrc/bcsr_spmm.cu",
+                replaces="suitesparse_tpu/ops/spmv.py:154",
+                launches=launches, max_abs_err=max_abs,
+                ms=tot["ms"], plain_ms=tot["plain_ms"],
+                bound_ms=tot["bound_ms"],
+                bound_by=("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                          else "operations"),
+                library_ms=tot["library_ms"],
+                timed_as=f"one call at each k in {list(BCSR_K)} on "
+                         f"{OPS_MATRIX}'s block table, summed",
+                **extra)
+
+
 def main() -> int:
     try:
         import torch
@@ -466,10 +794,27 @@ def main() -> int:
     launches = block_chol.launches
     check(launches > 0, "main path never launched block_chol")
     log(f"[main] block_chol launches on the main path: {launches}")
-
     kline = kernel_line(shapes, launches, kind)
+    log(f"[time] cholesky phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # the sparse-product slice
+    from suitesparse_tpu_torch.ops.spmv import bcsr_spmm
+    phase_bcsr_vs_plain()
+    A, S = ops_matrix()
+    bcsr_spmm.launches = 0             # the slice's count starts here
+    block_chol.launches = 0
+    ops_row, bc, Xs = run_ops(A, S)
+    graph_row = run_graph()
+    slice_launches = bcsr_spmm.launches
+    check(slice_launches > 0, "the slice's path never launched bcsr_spmm")
+    log(f"[main] bcsr_spmm launches on the slice's path: {slice_launches} "
+        f"(block_chol {block_chol.launches})")
+    log(f"[ops] {json.dumps(ops_row)}")
+    log(f"[graph] {json.dumps(graph_row)}")
+    bline = bcsr_kernel_line(bc, Xs, slice_launches, kind)
+
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {smi}")
-    print(json.dumps({"kernels": [kline]}), flush=True)
+    print(json.dumps({"kernels": [kline, bline]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -312,18 +312,8 @@ class SparseCSC:
         return True
 
     def __matmul__(self, other):
-        # the reference routes through its ops package (cholmod_sdmult /
-        # cholmod_ssmult); the port carries no ops package yet, so the same
-        # two products are computed through scipy here
-        if isinstance(other, SparseCSC):
-            if self.ncol != other.nrow:
-                raise SparseError(Status.INVALID,
-                                  "ssmult: inner dimension mismatch")
-            C = (self.to_scipy() @ other.to_scipy()).tocsc()
-            C.sort_indices()
-            return SparseCSC(C.indptr, C.indices, C.data, C.shape,
-                             stype=UNSYM)
-        return np.asarray(self.to_scipy() @ np.asarray(other))
+        from ..ops import host_matmul  # late: ops imports this module
+        return host_matmul(self, other)
 
 
 @dataclasses.dataclass

@@ -24,6 +24,17 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def device_of(*objs, device=None) -> torch.device:
+    """Where a call runs: the device of the first of ``objs`` that lives on
+    one (a tensor, or an object with a ``device``), else ``device``
+    resolved as above (None: the card)."""
+    for o in objs:
+        dev = getattr(o, "device", None)
+        if isinstance(dev, torch.device):
+            return dev
+    return resolve_device(device)
+
+
 def default_dtype(device: torch.device):
     """float64 on the CPU, float32 on the card (the reference's rule:
     f64 where the platform runs it at full rate, f32 on the accelerator)."""

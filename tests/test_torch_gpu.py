@@ -14,6 +14,7 @@ from suitesparse_tpu_torch.cholesky import (analyze, factorize_super,
 from suitesparse_tpu_torch.cholesky import kernels
 from suitesparse_tpu_torch.core.common import default_common
 from suitesparse_tpu_torch.io.generators import laplacian_3d
+from suitesparse_tpu_torch.ops import spmv
 
 
 def _need_card():
@@ -89,3 +90,44 @@ def test_factor_on_card_matches_cpu():
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-12
     b = np.random.default_rng(0).standard_normal(A.ncol)
     assert residual_norm(A, solve_super(fg, b, "A", cm), b) < 1e-14
+
+
+@pytest.mark.gpu
+def test_bcsr_spmm_cuda_kernel_matches_plain():
+    """The BCSR kernel vs its plain version on the card, float32, 1e-5
+    relative: both sum up to 128 * nslots products in another order.
+    Cases: one block, m and n not multiples of 128, k in {1, 50, 130},
+    rows with pad slots."""
+    import scipy.sparse as sp
+    from suitesparse_tpu_torch.core.sparse import SparseCSC
+    _need_card()
+    rng = np.random.default_rng(4)
+    for m, n, d, k in ((90, 100, 0.3, 1), (1000, 700, 0.01, 50),
+                       (1000, 700, 0.01, 130), (700, 1100, 0.0001, 7)):
+        S = sp.random(m, n, d, random_state=rng, format="csc")
+        bc = spmv.to_bcsr(SparseCSC.from_scipy(S))
+        X = torch.as_tensor(rng.standard_normal((n, k)), dtype=torch.float32,
+                            device="cuda")
+        before = spmv.bcsr_spmm.launches
+        Y = spmv.bcsr_spmm(bc, X)
+        assert spmv.bcsr_spmm.launches == before + 1
+        blocks, cols = bc.device_arrays(X.device)
+        P = spmv.bcsr_spmm_plain(blocks, cols, X, bc.nslots, bc.shape)
+        torch.cuda.synchronize()
+        assert Y.shape == (m, k) and Y.dtype == torch.float32
+        assert float((Y - P).abs().max() / P.abs().max()) <= 1e-5
+        ref = S @ X.double().cpu().numpy()
+        assert float(np.abs(Y.cpu().numpy() - ref).max()
+                     / np.abs(ref).max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_bcsr_spmm_cuda_rejects_other_block_sizes():
+    import scipy.sparse as sp
+    from suitesparse_tpu_torch.core.sparse import SparseCSC
+    _need_card()
+    S = sp.random(200, 200, 0.05, random_state=np.random.default_rng(5),
+                  format="csc")
+    bc = spmv.to_bcsr(SparseCSC.from_scipy(S), bm=64, bk=64)
+    with pytest.raises(ValueError):
+        spmv.bcsr_spmm(bc, torch.ones((200, 4), device="cuda"))

@@ -27,6 +27,17 @@ import suitesparse_tpu_torch.cholesky.super_numeric
 import suitesparse_tpu_torch.cholesky.wave
 import suitesparse_tpu_torch.io.generators
 import suitesparse_tpu_torch.utils.cuda_build
+import suitesparse_tpu_torch.ops
+import suitesparse_tpu_torch.ops.host
+import suitesparse_tpu_torch.ops.spgemm
+import suitesparse_tpu_torch.ops.spmv
+import suitesparse_tpu_torch.graphblas
+import suitesparse_tpu_torch.graphblas.algorithms
+import suitesparse_tpu_torch.graphblas.core
+import suitesparse_tpu_torch.graphblas.extra
+import suitesparse_tpu_torch.graphblas.objects
+import suitesparse_tpu_torch.models
+import suitesparse_tpu_torch.models.ssmult
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
@@ -64,6 +75,54 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         port_pf.pf_numeric(vals, plan.pf_plan(cm), np.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
         port_sn.factor_from_numpy(plan, np.zeros(plan.total + 1), sym.perm)
+
+
+def test_sparse_product_entry_points_raise_without_a_card(monkeypatch):
+    """The ops, graphblas and models entry points run on the card when no
+    device is given, and raise without one: nothing falls back."""
+    import scipy.sparse as sp
+    from suitesparse_tpu_torch import graphblas as gb
+    from suitesparse_tpu_torch import models, ops
+    from suitesparse_tpu_torch.core.sparse import SparseCSC
+    S = sp.random(40, 40, 0.1, random_state=np.random.default_rng(0),
+                  format="csc") + sp.eye(40)
+    A = SparseCSC.from_scipy(S)
+    x = np.ones(40)
+    bc = ops.to_bcsr(A)                       # host work needs no card
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: ops.bcsr_spmm(bc, np.ones((40, 3))),
+        lambda: ops.spmv_program(A),
+        lambda: ops.spmm_program(A),
+        lambda: ops.spgemm(A, A),
+        lambda: ops.spgemm_apply(ops.cached_plan(A, A), A.data, A.data,
+                                 "plus_times"),
+        lambda: models.ssmult(A, A),
+        lambda: models.sfmult(A, x),
+        lambda: gb.GrBMatrix.from_csc(A),
+        lambda: gb.mxv(A, x),
+        lambda: gb.vxm(x, A),
+        lambda: gb.mxm(A, A),
+        lambda: gb.mxm(gb.realize(A, "bitmap"), gb.realize(A, "full")),
+        lambda: gb.ewise_add(A, A),
+        lambda: gb.ewise_mult(A, A),
+        lambda: gb.ewise_union(A, A),
+        lambda: gb.apply(A, "abs"),
+        lambda: gb.kron(A, A),
+        lambda: gb.reduce_rows(A),
+        lambda: gb.reduce_scalar(A),
+        lambda: gb.positional_mxm(A, A),
+        lambda: gb.positional_mxv(A, x),
+        lambda: gb.pagerank(A),
+        lambda: gb.bfs_levels(A, 0),
+        lambda: gb.triangle_count(A),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    # host-only operations and the host BFS need no card
+    assert gb.bfs_levels(A, 0, method="push")[0] == 0
+    assert gb.select(A, "tril").nnz > 0
 
 
 def test_cpu_defaults_to_float64_and_dtype_is_honoured():
