@@ -14,9 +14,14 @@ lap3d_44's full symmetric pattern the BCSR product (the ``bcsr_spmm``
 kernel), the segment SpMM program, sfmult, the Gustavson SpGEMM, ssmult
 and a min_plus mxv, each against a host oracle; and on two graphs of
 n = 1,000,000 PageRank, BFS (device pull and host push) and triangle
-counting.  Any failed check raises and the script exits nonzero; nothing
-is caught and carried on.  Without a CUDA device, or without the package
-beside it, it exits nonzero and prints no result.
+counting.  Then the dispatch-floor probes (``scale_blocks`` and
+``scale_gather`` of ``csrc/dispatch_probe.cu`` bit for bit against their
+plain versions, and the probe tool's ``main()``), and the Cholesky front
+end on lap3d_44: ``spsolve_chol``, ``CholeskySolver`` refactorizations,
+the wave program and the bfloat16 SYRK option, each refined in float64.
+Any failed check raises and the script exits nonzero; nothing is caught
+and carried on.  Without a CUDA device, or without the package beside
+it, it exits nonzero and prints no result.
 
 It also profiles one refactorization of each matrix with torch.profiler:
 the Chrome trace goes to ``build/profiles/profile_<matrix>.json`` (~30 MB
@@ -48,7 +53,10 @@ RESIDUAL_MAX = 1e-11          # after 3 float64 refinement steps
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # the port's CUDA sources, csrc/<name>.cu
-KERNELS = ("block_chol", "bcsr_spmm")
+KERNELS = ("block_chol", "bcsr_spmm", "dispatch_probe")
+DISPATCH_G = (64, 256)        # grid sizes of the dispatch-floor probes
+FRONT_MATRIX = "lap3d_44"
+REFINE_STEPS = 3
 REFACTOR_REPS = 5
 OPS_MATRIX = "lap3d_44"
 BCSR_K = (32, 128)            # right-hand-side widths of the BCSR product
@@ -757,6 +765,238 @@ def bcsr_kernel_line(bc, Xs, launches, dev_kind):
                 **extra)
 
 
+# -- the dispatch-floor probes ----------------------------------------------
+
+def phase_dispatch_vs_plain() -> dict:
+    """scale_blocks and scale_gather vs their plain versions on the card,
+    bit for bit (one float32 multiply by the same constant), at the
+    probe's grid sizes, one and four thread blocks a grid step, reversed
+    and random covering offsets; returns the largest |kernel - plain| of
+    each (0.0 when they agree)."""
+    import torch
+    from suitesparse_tpu_torch.tools import microbench_dispatch as probe
+    rng = np.random.default_rng(8)
+    worst = dict(scale_blocks=0.0, scale_gather=0.0)
+    for G in DISPATCH_G:
+        rows = G * probe.ROWS
+        buf = torch.as_tensor(rng.standard_normal((rows, probe.COLS)),
+                              dtype=torch.float32, device="cuda")
+        P = probe.scale_blocks_plain(buf, G)
+        for split in (1, 4):
+            K = probe.scale_blocks(buf, G, split=split)
+            sync()
+            worst["scale_blocks"] = max(worst["scale_blocks"],
+                                        float((K - P).abs().max()))
+            check(torch.equal(K, P),
+                  f"scale_blocks G={G} split={split} differs from plain")
+        for order in ("reversed", "random"):
+            perm = np.arange(G)[::-1] if order == "reversed" else \
+                rng.permutation(G)
+            table = probe.GatherTable(perm * probe.ROWS, rows)
+            Pg = probe.scale_gather_plain(table, buf)
+            check(torch.equal(Pg, P), "covering offsets must write every row")
+            for split in (1, 4):
+                Kg = probe.scale_gather(table, buf, split=split)
+                sync()
+                worst["scale_gather"] = max(worst["scale_gather"],
+                                            float((Kg - Pg).abs().max()))
+                check(torch.equal(Kg, Pg), f"scale_gather G={G} {order} "
+                      f"split={split} differs from plain")
+    refused = False
+    try:
+        probe.scale_gather(np.array([0, probe.ROWS // 2]), buf)
+    except ValueError:
+        refused = True
+    check(refused, "scale_gather accepted overlapping offset windows")
+    log(f"[dispatch] scale_blocks and scale_gather vs plain at G in "
+        f"{list(DISPATCH_G)}, 1 and 4 blocks a step, reversed and random "
+        f"offsets: bit-identical (max |diff| {worst}); overlapping offsets "
+        f"refused")
+    return worst
+
+
+def dispatch_kernel_lines(res, launches, max_abs, dev_kind):
+    """The kernels-line entries of the two probes from ``main()``'s device
+    times (CUDA events over 20 launches queued behind a spin kernel, on
+    buffers that together exceed the L2 cache), beside their plain
+    versions (timed the same way) and their bound, summed over the grid
+    sizes; ``torch.mul`` is the library call of the same function."""
+    from suitesparse_tpu_torch.tools import microbench_dispatch as probe
+    out = []
+    for name, key, line, gathered in (
+            ("scale_blocks", "kernel", 69, False),
+            ("scale_gather", "gathered", 92, True)):
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                   bytes_ms=0.0, ops_ms=0.0)
+        extra = {}
+        for G in DISPATCH_G:
+            r = res[key][G]
+            rows = G * probe.ROWS
+            bufs = probe.cold_buffers(G, "cuda")
+            if gathered:
+                table = probe.GatherTable(np.arange(G)[::-1] * probe.ROWS,
+                                          rows)
+                plain = probe.device_time(probe.scale_gather_plain,
+                                          [(table, b) for b in bufs]) * 1e3
+            else:
+                plain = probe.device_time(probe.scale_blocks_plain,
+                                          [(b, G) for b in bufs]) * 1e3
+            del bufs
+            # each block read once and written once (and the offset table
+            # read once); one multiply per element
+            nbytes = 2 * rows * probe.COLS * 4 + (4 * G if gathered else 0)
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            t_ops = rows * probe.COLS / PEAK_F32_FLOPS * 1e3
+            ms, lib = r["device_s"] * 1e3, r["mul_s"] * 1e3
+            log(f"[kernel] {name} G={G}: {ms * 1e3:.2f} us on the device "
+                f"({ms * 1e3 / G:.3f} us/block; one block a step "
+                f"{r['device_s_split1'] * 1e6:.2f} us), {r['host_s'] * 1e6:.2f} us "
+                f"a call on the host clock; plain {plain * 1e3:.2f} us, "
+                f"torch.mul {lib * 1e3:.2f} us, bound "
+                f"{max(t_bytes, t_ops) * 1e3:.2f} us by bytes on {dev_kind}")
+            for k, v in (("ms", ms), ("plain_ms", plain),
+                         ("bound_ms", max(t_bytes, t_ops)),
+                         ("library_ms", lib), ("bytes_ms", t_bytes),
+                         ("ops_ms", t_ops)):
+                tot[k] += v
+            extra.update({f"ms_G{G}": ms, f"host_ms_G{G}": r["host_s"] * 1e3,
+                          f"ms_one_block_a_step_G{G}":
+                              r["device_s_split1"] * 1e3,
+                          f"plain_ms_G{G}": plain, f"library_ms_G{G}": lib,
+                          f"bound_ms_G{G}": max(t_bytes, t_ops)})
+        out.append(dict(
+            name=name, route="cuda",
+            source="suitesparse_tpu_torch/csrc/dispatch_probe.cu",
+            replaces=f"tools/microbench_dispatch.py:{line}",
+            launches=launches[name], max_abs_err=max_abs[name],
+            ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+            bound_by=("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                      else "operations"),
+            library_ms=tot["library_ms"],
+            timed_as=f"one launch at each G in {list(DISPATCH_G)} (CUDA "
+                     f"events over 20 launches queued behind a spin kernel, "
+                     f"L2-cold, in the probe's main()), summed",
+            **extra))
+    return out
+
+
+# -- the Cholesky front end ---------------------------------------------------
+
+def run_front():
+    """spsolve_chol, CholeskySolver, the wave program and syrk_bf16 on
+    FRONT_MATRIX at full size, float32 factors on the card, each solve
+    refined REFINE_STEPS times in float64 on the host."""
+    import torch
+    from suitesparse_tpu_torch.cholesky import (CholeskySolver, cholesky,
+                                                residual_norm, spsolve_chol)
+    from suitesparse_tpu_torch.cholesky.super_numeric import _assemble_values
+    from suitesparse_tpu_torch.cholesky.wave import wave_numeric
+    from suitesparse_tpu_torch.core.common import default_common
+    from suitesparse_tpu_torch.io.generators import (symmetrize_upper,
+                                                     synthetic_standin)
+    A = synthetic_standin(FRONT_MATRIX)
+    if A.stype == 0:
+        A = symmetrize_upper(A)
+    n = A.ncol
+    b = np.random.default_rng(9).standard_normal(n)
+    Sf = A.to_scipy().astype(np.float64)
+
+    def common(**opts):
+        cm = default_common()
+        cm.cholesky.supernodal = "supernodal"
+        cm.cholesky.program = "pf"
+        for k, v in opts.items():
+            setattr(cm.cholesky, k, v)
+        return cm
+
+    def refined(solve):
+        """Residual of the raw solve and after each refinement step."""
+        x = solve(b).astype(np.float64)
+        res = [residual_norm(A, x, b)]
+        for _ in range(REFINE_STEPS):
+            x = x + solve(b - Sf @ x).astype(np.float64)
+            res.append(residual_norm(A, x, b))
+        return res
+
+    t_sp, x = host_time(lambda: spsolve_chol(A, b, common(),
+                                             refine_steps=REFINE_STEPS))
+    res_sp = residual_norm(A, x, b)
+    check(res_sp <= RESIDUAL_MAX,
+          f"spsolve_chol residual {res_sp:.3e} > {RESIDUAL_MAX}")
+    log(f"[front] {FRONT_MATRIX} n={n}: spsolve_chol (analysis, float32 "
+        f"factor on the card, {REFINE_STEPS} float64 refinement steps) "
+        f"{t_sp:.2f} s, residual {res_sp:.3e} (limit {RESIDUAL_MAX})")
+
+    t_an, solver = host_time(lambda: cholesky(A, common(), device="cuda"))
+    f0 = solver.factor
+    check(f0.Lx.device.type == "cuda" and f0.Lx.dtype == torch.float32,
+          f"CholeskySolver factor on {f0.Lx.device} {f0.Lx.dtype}")
+    t_r1, _ = host_time(lambda: solver.refactorize(A))
+    L1 = solver.factor.Lx
+    t_r2, _ = host_time(lambda: solver.refactorize(A))
+    L2 = solver.factor.Lx
+    check(torch.equal(f0.Lx, L1) and torch.equal(L1, L2),
+          "CholeskySolver refactorizations are not bit-identical")
+    res_pf = refined(solver.solve)
+    check(res_pf[-1] <= RESIDUAL_MAX, f"pf residual {res_pf[-1]:.3e}")
+    tot = solver.plan.total
+    Lpf = L2[:tot]
+    log(f"[front] cholesky() {t_an:.2f} s; refactorize x2 {t_r1:.3f} / "
+        f"{t_r2:.3f} s, bit-identical; residuals raw and refined {res_pf}")
+
+    t_wp, wp = host_time(lambda: solver.plan.wave_plan())
+    wsolver = CholeskySolver(sym=solver.sym, common=common(program="wave"),
+                             ss=solver.ss, plan=solver.plan, device="cuda")
+    t_w1, _ = host_time(lambda: wsolver.refactorize(A))
+    check(wsolver.factor.ok, f"wave factor minor {wsolver.factor.minor}")
+    vd = torch.as_tensor(_assemble_values(A, solver.sym, solver.ss,
+                                          np.float32), device="cuda")
+    t_wave = []
+    for _ in range(REFACTOR_REPS):
+        t, Lw = host_time(lambda: wave_numeric(vd, wp, np.float32,
+                                               device="cuda"))
+        t_wave.append(t)
+    check(torch.equal(Lw, wsolver.factor.Lx),
+          "wave refactorizations are not bit-identical")
+    del Lw
+    d_wave = rel_err(wsolver.factor.Lx[:tot], Lpf)
+    # two float32 factors of one matrix by other operation orders
+    check(d_wave <= 1e-3, f"wave vs pf factor {d_wave:.3e}")
+    res_wave = refined(wsolver.solve)
+    check(res_wave[-1] <= RESIDUAL_MAX, f"wave residual {res_wave[-1]:.3e}")
+    log(f"[front] wave program: {len(wp.instr_cls)} waves in "
+        f"{len(wp.classes)} classes, plan {t_wp:.2f} s, first factor "
+        f"{t_w1:.3f} s, refactor median {np.median(t_wave) * 1e3:.1f} ms "
+        f"(all {[round(t * 1e3, 1) for t in t_wave]}), bit-identical; "
+        f"relative difference to the pf factor {d_wave:.3e}; residuals "
+        f"{res_wave}")
+
+    bsolver = CholeskySolver(sym=solver.sym, common=common(syrk_bf16=True),
+                             ss=solver.ss, plan=solver.plan, device="cuda")
+    t_b, _ = host_time(lambda: bsolver.refactorize(A))
+    d_bf16 = rel_err(bsolver.factor.Lx[:tot], Lpf)
+    # float32 refactorizations without the option are bit-identical, so
+    # any difference is the bf16 rounding (2**-9 relative a value)
+    check(1e-5 < d_bf16 < 1e-2,
+          f"syrk_bf16 factor vs float32 factor {d_bf16:.3e}")
+    res_bf16 = refined(bsolver.solve)
+    check(all(r1 < r0 for r0, r1 in zip(res_bf16, res_bf16[1:])),
+          f"refinement of the bf16 factor does not contract: {res_bf16}")
+    log(f"[front] syrk_bf16 (pf): factor {t_b:.3f} s, relative difference "
+        f"to the float32 factor {d_bf16:.3e}; residual raw {res_bf16[0]:.3e}"
+        f", after each refinement step {res_bf16[1:]}")
+    return dict(matrix=FRONT_MATRIX, n=n, spsolve_chol_s=t_sp,
+                spsolve_chol_residual=res_sp, cholesky_s=t_an,
+                refactorize_s=[t_r1, t_r2], pf_residuals=res_pf,
+                wave_plan_s=t_wp, wave_first_factor_s=t_w1,
+                wave_refactor_ms=float(np.median(t_wave)) * 1e3,
+                wave_refactor_ms_all=[t * 1e3 for t in t_wave],
+                wave_waves=int(len(wp.instr_cls)),
+                wave_vs_pf_rel=d_wave, wave_residuals=res_wave,
+                bf16_factor_s=t_b, bf16_vs_f32_rel=d_bf16,
+                bf16_residuals=res_bf16)
+
+
 def main() -> int:
     try:
         import torch
@@ -812,9 +1052,34 @@ def main() -> int:
     log(f"[ops] {json.dumps(ops_row)}")
     log(f"[graph] {json.dumps(graph_row)}")
     bline = bcsr_kernel_line(bc, Xs, slice_launches, kind)
+    del A, S, bc, Xs
+    log(f"[time] sparse-product phases done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    # the dispatch-floor probes: their path is the probe tool's main()
+    from suitesparse_tpu_torch.tools import microbench_dispatch as probe
+    worst = phase_dispatch_vs_plain()
+    probe.scale_blocks.launches = 0    # the probe path's count starts here
+    probe.scale_gather.launches = 0
+    res = probe.main(grids=DISPATCH_G)
+    plaunch = dict(scale_blocks=probe.scale_blocks.launches,
+                   scale_gather=probe.scale_gather.launches)
+    check(all(plaunch.values()), f"the probe path skipped a kernel: {plaunch}")
+    log(f"[main] probe launches on the probe path: {plaunch}")
+    log(f"[dispatch] launch floors (s): {json.dumps(res['floor'])}; eager "
+        f"op (chain) {json.dumps(res['chain'])}")
+    dlines = dispatch_kernel_lines(res, plaunch, worst, kind)
+
+    # the Cholesky front end
+    block_chol.launches = 0            # the front end's count starts here
+    front = run_front()
+    check(block_chol.launches > 0, "the front end never launched block_chol")
+    log(f"[main] block_chol launches on the front-end path: "
+        f"{block_chol.launches}")
+    log(f"[front] {json.dumps(front)}")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {smi}")
-    print(json.dumps({"kernels": [kline, bline]}), flush=True)
+    print(json.dumps({"kernels": [kline, bline] + dlines}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

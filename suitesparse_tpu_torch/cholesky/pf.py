@@ -39,7 +39,7 @@ from ..utils.device import resolve_device, torch_dtype
 from .kernels import panel_factor
 from .super_numeric import (NumericPlan, _a_sorted_maps, _index, _panels,
                             _seg_lengths, assemble, cholesky_or_nan,
-                            scatter_add_maps, segment_sum)
+                            scatter_add_maps, segment_sum, syrk)
 
 __all__ = ["PFPlan", "build_pf_plan", "pf_numeric"]
 
@@ -710,11 +710,12 @@ def _tri_inv_pow2(C: torch.Tensor, base: int = 2) -> torch.Tensor:
     return inv
 
 
-def _factor_step(Np, Mb, W, mode, L, K):
+def _factor_step(Np, Mb, W, mode, L, K, bf16=False):
     """One factor wave: POTRF + TRSM (panel_factor, whose diagonal blocks
-    go through the block_chol kernel), SYRK plus the lower-canonical
-    incoming update, the panel write, and either the published full
-    update (mode 1) or the 1-hop sorted-segment scatter (mode 2)."""
+    go through the block_chol kernel), SYRK (from bfloat16 inputs when
+    ``bf16``) plus the lower-canonical incoming update, the panel write,
+    and either the published full update (mode 1) or the 1-hop
+    sorted-segment scatter (mode 2)."""
     Mp = Np + Mb
 
     def step(Fx, pos, ops):
@@ -740,8 +741,7 @@ def _factor_step(Np, Mb, W, mode, L, K):
             Bm = newP[:, Np:, :]
             slot = _panels(Fx, ops["ubs"][pos], W, Mb, Mb)
             acc = torch.tril(slot)     # lower-canonical incoming updates
-            U = Bm @ Bm.transpose(1, 2) + acc + torch.tril(acc, -1).transpose(
-                1, 2)
+            U = syrk(Bm, bf16) + acc + torch.tril(acc, -1).transpose(1, 2)
         P.copy_(newP)
         if Mb and mode == 1:
             slot.copy_(U)              # publish the full symmetric update
@@ -787,12 +787,17 @@ def _slab_add(Fx, rows, updates):
     Fx[idx] += updates[keep].reshape(-1)
 
 
-def _pair_step(Mbc, G, Pq, Npt, Mbt, pc, uc, spanq):
+def _pair_step(Mbc, G, Pq, Npt, Mbt, pc, uc, spanq, bf16=False):
     """Pair-grouped projection: each parent's children (padded to pow2 G)
     ride the contraction axis, so the placement patch materializes per
     parent, (Pq, Mft, Npt).  Children are slab-gathered by offset; patches
     land by one contiguous read-modify-write when the parent slots are
-    consecutive, else by a slab scatter-add."""
+    consecutive, else by a slab scatter-add.
+
+    bf16: the reference's bfloat16 placement -- the placed update entries
+    rounded to bfloat16, then summed over the children in the factor's
+    dtype.  The placement weights are exact 0/1 one-hots, so rounding the
+    placed rows and multiplying in the factor's dtype is that function."""
     Mft = Npt + Mbt
     ssz = Mbc * Mbc
 
@@ -818,6 +823,8 @@ def _pair_step(Mbc, G, Pq, Npt, Mbt, pc, uc, spanq):
         else:
             Ucz = torch.cat([Uc, Uc.new_zeros((Pq, G, 1, Mbc))], dim=2)
             R = torch.gather(Ucz, 2, idxf[..., None].expand(Pq, G, Mft, Mbc))
+        if bf16:
+            R = R.to(torch.bfloat16).to(dtype)
         S = torch.einsum("pgfm,pghm->pfh", R, Wh[:, :, :Npt, :])
         if pc:
             # contiguous parent slots: ONE read-modify-write; pad rows
@@ -837,12 +844,12 @@ def _pair_step(Mbc, G, Pq, Npt, Mbt, pc, uc, spanq):
     return step
 
 
-def _pf_steps(class_ops, meta):
+def _pf_steps(class_ops, meta, syrk_bf16=False):
     fops, pops, qops = class_ops
     fmeta, pmeta, qmeta = meta
-    steps = [(_factor_step(*m), o) for o, m in zip(fops, fmeta)]
+    steps = [(_factor_step(*m, syrk_bf16), o) for o, m in zip(fops, fmeta)]
     steps += [(_proj_step(*m), o) for o, m in zip(pops, pmeta)]
-    steps += [(_pair_step(*m), o) for o, m in zip(qops, qmeta)]
+    steps += [(_pair_step(*m, syrk_bf16), o) for o, m in zip(qops, qmeta)]
     return steps
 
 
@@ -850,10 +857,8 @@ def pf_numeric(vals, pfp: PFPlan, dtype, syrk_bf16=False, device=None):
     """The full numeric factorization with pass-forward extend-add:
     A-assembly into a zero buffer, then the instruction stream in order.
     Returns the flat (pfp.buf,) buffer on ``device`` (the card unless
-    "cpu" is asked for)."""
-    if syrk_bf16:
-        raise NotImplementedError(
-            "cholesky.syrk_bf16 is not ported to the PyTorch package yet")
+    "cpu" is asked for).  syrk_bf16: the SYRK updates and the pair
+    placements from bfloat16 inputs, summed in ``dtype``."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype)
     ops = pfp.arrays(dt, dev)
@@ -865,7 +870,7 @@ def pf_numeric(vals, pfp: PFPlan, dtype, syrk_bf16=False, device=None):
         pfp._cache[key] = amaps
     vals = torch.as_tensor(vals, dtype=dt, device=dev)
     Fx = assemble(vals, amaps[0], amaps[1], pfp.buf)
-    steps = _pf_steps(ops, pfp.meta)
+    steps = _pf_steps(ops, pfp.meta, syrk_bf16)
     for cid, pos in zip(pfp.instr_cls.tolist(), pfp.instr_pos.tolist()):
         step, cops = steps[cid]
         step(Fx, pos, cops)

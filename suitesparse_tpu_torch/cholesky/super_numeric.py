@@ -19,7 +19,8 @@ The small-pattern "unrolled" program (``resolve_program`` picks it for at
 most ``wave_threshold`` buckets) runs batched ``torch.linalg`` Cholesky /
 triangular solves per bucket, as the reference runs XLA's; larger patterns
 run the pass-forward program of pf.py, whose diagonal blocks go through
-the hand-written kernel of kernels.py.
+the hand-written kernel of kernels.py.  program="wave" runs the same
+per-bucket arithmetic over uniform waves (wave.wave_numeric).
 """
 from __future__ import annotations
 
@@ -286,6 +287,27 @@ def cholesky_or_nan(T: torch.Tensor) -> torch.Tensor:
                        torch.full_like(L, float("nan")))
 
 
+def syrk(B: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """U = B B^T for a batch B (W, m, k), in B's dtype.
+
+    bf16 (Common.cholesky.syrk_bf16): the reference's einsum of bfloat16
+    inputs with ``preferred_element_type`` = the factor's dtype, i.e. the
+    inputs rounded to bfloat16 and the products summed in B's dtype.  On
+    the card in float32 that is one bf16 product with float32 output (the
+    tensor cores); elsewhere the rounded values are cast back and
+    multiplied in B's dtype, the same function, since the product of two
+    bf16 values is exact in float32 and float64.  (A plain bf16 matmul
+    would round the update itself to bf16: not the reference's function.)
+    """
+    if not bf16:
+        return B @ B.transpose(1, 2)
+    Bs = B.to(torch.bfloat16)
+    if B.device.type == "cuda" and B.dtype == torch.float32:
+        return torch.bmm(Bs, Bs.transpose(1, 2), out_dtype=torch.float32)
+    Bs = Bs.to(B.dtype)
+    return Bs @ Bs.transpose(1, 2)
+
+
 def _panels(Lx: torch.Tensor, base: int, B: int, Mp: int, Np: int):
     """View of B contiguous (Mp, Np) panels of the flat buffer at base."""
     return Lx[base:base + B * Mp * Np].view(B, Mp, Np)
@@ -351,11 +373,14 @@ def assemble(vals: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
     return Lx
 
 
-def _level_step_segsum(Lx, bucket_arrays, bucket_meta):
+def _level_step_segsum(Lx, bucket_arrays, bucket_meta, syrk_bf16=False):
     """One level: each bucket's panels factored in one batch (POTRF, TRSM,
     SYRK), written back in place, then the sorted-segment extend-add: one
     static gather of the real update entries, a sorted segment sum that
-    folds duplicates, and a scatter onto unique targets."""
+    folds duplicates, and a scatter onto unique targets.
+
+    syrk_bf16: the SYRK update from bfloat16 inputs summed in the factor's
+    dtype (``syrk``); the POTRF/TRSM panels keep the factor's dtype."""
     for ops, (Np, Mb, base, B) in zip(bucket_arrays, bucket_meta):
         Mp = Np + Mb
         P = _panels(Lx, base, B, Mp, Np)
@@ -367,7 +392,7 @@ def _level_step_segsum(Lx, bucket_arrays, bucket_meta):
             # Bm = B C^-T, i.e. the X with X C^T = B
             Bm = torch.linalg.solve_triangular(
                 C.transpose(1, 2), P[:, Np:, :], upper=True, left=False)
-            U = Bm @ Bm.transpose(1, 2)
+            U = syrk(Bm, syrk_bf16)
             newP = torch.cat([C, Bm], dim=1)
         else:
             newP = C
@@ -381,13 +406,14 @@ def _level_step_segsum(Lx, bucket_arrays, bucket_meta):
     return Lx
 
 
-def _numeric_program(vals, a_src, a_dst, level_arrays, meta, total):
+def _numeric_program(vals, a_src, a_dst, level_arrays, meta, total,
+                     syrk_bf16=False):
     """The full numeric factorization: sorted A-assembly into the zero
     panel buffer, then the level schedule.  Reused verbatim across
     refactorizations."""
     Lx = assemble(vals, a_src, a_dst, total + 1)
     for li in range(len(meta)):
-        Lx = _level_step_segsum(Lx, level_arrays[li], meta[li])
+        Lx = _level_step_segsum(Lx, level_arrays[li], meta[li], syrk_bf16)
     return Lx
 
 
@@ -409,6 +435,38 @@ class SuperFactor:
     @property
     def ok(self) -> bool:
         return self.minor == self.n
+
+    def to_simplicial(self):
+        """cholmod_change_factor(super -> simplicial LL') equivalent: the
+        panels copied to the host as a simplicial Factor."""
+        from .simplicial import Factor
+        ss = self.plan.ss
+        n = ss.n
+        Lx_h = self.Lx.detach().cpu().numpy()
+        cols_i: list[np.ndarray] = []
+        cols_x: list[np.ndarray] = []
+        Lp = np.zeros(n + 1, dtype=INDEX)
+        for s in range(ss.nsuper):
+            ms, ns = ss.panel_shape(s)
+            mb = ms - ns
+            Np = int(ss.panel_Np[s])
+            Mp = int(ss.panel_Mp[s])
+            o = int(ss.panel_off[s])
+            Pn = Lx_h[o:o + Mp * Np].reshape(Mp, Np)
+            rows = ss.rows_of(s)
+            for c in range(ns):
+                j = int(ss.super[s]) + c
+                ri = rows[c:]
+                vx = np.concatenate([Pn[c:ns, c], Pn[Np:Np + mb, c]])
+                cols_i.append(ri)
+                cols_x.append(vx)
+                Lp[j + 1] = len(ri)
+        np.cumsum(Lp, out=Lp)
+        Li = np.concatenate(cols_i) if cols_i else np.empty(0, dtype=INDEX)
+        Lxs = np.concatenate(cols_x) if cols_x else np.empty(0)
+        return Factor(n=n, perm=self.perm, Lp=Lp, Li=Li.astype(INDEX),
+                      Lx=Lxs, D=None, is_ll=True, minor=self.minor,
+                      symbolic=None)
 
 
 def _assemble_values(A: SparseCSC, sym: Symbolic, ss: SuperSymbolic,
@@ -458,20 +516,17 @@ def factorize_super(A: SparseCSC, sym: Symbolic, ss: SuperSymbolic,
             "matrices")
     dev = resolve_device(device)
     dtype = numpy_dtype(default_dtype(dev) if dtype is None else dtype)
-    if cm.cholesky.syrk_bf16:
-        raise NotImplementedError(
-            "cholesky.syrk_bf16 is not ported to the PyTorch package yet")
+    bf16 = cm.cholesky.syrk_bf16
     plan = plan or build_plan(ss)
     prog = plan.resolve_program(cm)
-    if prog == "wave":
-        raise NotImplementedError(
-            "program='wave' (wave_numeric) is not ported to the PyTorch "
-            "package yet; use 'pf' or 'unrolled'")
     cm.tic("factorize")
     vals = torch.as_tensor(_assemble_values(A, sym, ss, dtype), device=dev)
     if prog == "pf":
         from .pf import pf_numeric
-        Lx = pf_numeric(vals, plan.pf_plan(cm), dtype, device=dev)
+        Lx = pf_numeric(vals, plan.pf_plan(cm), dtype, bf16, device=dev)
+    elif prog == "wave":
+        from .wave import wave_numeric
+        Lx = wave_numeric(vals, plan.wave_plan(), dtype, bf16, device=dev)
     else:
         key = ("amaps", dev)
         amaps = plan._cache.get(key)
@@ -481,7 +536,7 @@ def factorize_super(A: SparseCSC, sym: Symbolic, ss: SuperSymbolic,
             plan._cache[key] = amaps
         Lx = _numeric_program(vals, amaps[0], amaps[1],
                               plan.arrays_segsum(dtype, dev), plan.meta,
-                              plan.total)
+                              plan.total, bf16)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t = cm.toc("factorize")
@@ -580,10 +635,12 @@ def solve_super(f: SuperFactor, b: np.ndarray, system: str = "A",
     if plan.use_wave(common):
         from .wave import (wave_lsolve, wave_ltsolve, wave_solve_llt,
                            solve_dinv)
-        # pf factors reuse the wave solve; only the solve maps are needed
-        wp = plan.wave_plan(
-            solve_only=plan.resolve_program(common) == "pf"
-            and plan._wave is None)
+        # pf factors reuse the wave solve; only the solve maps are needed,
+        # so a solve-only plan (or a full one already built) serves every
+        # later solve too.  (The reference asks for the full plan from the
+        # second solve on, which rebuilds the factor's extend-add maps:
+        # seconds at lap3d_44 for maps the solve never reads.)
+        wp = plan.wave_plan(solve_only=plan.resolve_program(common) == "pf")
         xrows = n + wp.xpad
         # inverted diagonal blocks, computed ONCE per numeric factor and
         # cached on it: every later solve applies them as one product

@@ -1,16 +1,15 @@
-"""Wave-scheduled supernodal solves in PyTorch.
+"""Wave-scheduled supernodal factor and solves in PyTorch.
 
-Counterpart of the solve half of suitesparse_tpu/cholesky/wave.py.  The
-wave plan is the reference's, copied: every bucket is split into uniform
-**waves** of ``W`` panels per padded shape class ``(Np, Mb)``, and each
-wave is one contiguous slice of the flat factor buffer, with per-wave
-operands (base offset, masks, solve maps) stacked per class.
+Counterpart of suitesparse_tpu/cholesky/wave.py.  The wave plan is the
+reference's, copied: every bucket is split into uniform **waves** of ``W``
+panels per padded shape class ``(Np, Mb)``, and each wave is one
+contiguous slice of the flat factor buffer, with per-wave operands (base
+offset, masks, extend-add and solve maps) stacked per class.
 
 The reference compiles the stream of waves as one XLA program (unrolled
 or scanned with a switch over classes).  PyTorch runs eagerly, so the port
-walks the same stream in a Python loop and updates the solution panel in
-place.  ``wave_numeric`` (program="wave") is not ported yet; the pass-
-forward program (pf.py) owns the factorization.
+walks the same stream in a Python loop and updates the factor buffer
+(``wave_numeric``, program="wave") or the solution panel in place.
 """
 from __future__ import annotations
 
@@ -20,9 +19,11 @@ import numpy as np
 import torch
 
 from ..core.sparse import INDEX
-from .super_numeric import (NumericPlan, _index, _panels, _seg_lengths,
+from ..utils.device import resolve_device, torch_dtype
+from .super_numeric import (NumericPlan, _a_sorted_maps, _index, _panels,
+                            _seg_lengths, assemble, cholesky_or_nan,
                             scatter_add_maps, segment_sum,
-                            sorted_scatter_maps)
+                            sorted_scatter_maps, syrk)
 
 
 def _pad_to(a: np.ndarray, length: int, fill) -> np.ndarray:
@@ -77,6 +78,30 @@ class WavePlan:
     def meta(self):
         return tuple((c.Np, c.Mb, c.W, c.L, c.K, c.CL, c.CK, c.RL, c.RK)
                      for c in self.classes)
+
+    def arrays(self, dtype, device):
+        """Per-class factor operands, cached per (dtype, device): slice
+        offsets stay host ints; masks and the padded extend-add maps (with
+        their segment lengths) become tensors."""
+        dev = torch.device(device)
+        key = ("factor", dtype, dev)
+        got = self._cache.get(key)
+        if got is None:
+            got = tuple(
+                dict(base=c.base.tolist(),
+                     padeye=torch.as_tensor(c.padeye, dtype=dtype,
+                                            device=dev),
+                     rowmask=torch.as_tensor(c.rowmask, dtype=dtype,
+                                             device=dev),
+                     colmask=torch.as_tensor(c.colmask, dtype=dtype,
+                                             device=dev),
+                     src=_index(c.src, dev), dst=_index(c.dst, dev),
+                     lens=(torch.stack([_seg_lengths(i, c.K, dev)
+                                        for i in c.ids])
+                           if c.L else None))
+                for c in self.classes)
+            self._cache[key] = got
+        return got
 
     def solve_arrays(self, dtype, device):
         """Per-class solve operands, cached per (dtype, device): slice
@@ -243,6 +268,66 @@ def build_wave_plan(plan: NumericPlan, solve_only: bool = False) -> WavePlan:
     return WavePlan(plan=plan, classes=classes, instr_cls=instr_cls,
                     instr_pos=instr_pos, buf=total + 1 + kmax,
                     xpad=1 + xkmax, solve_only=solve_only)
+
+
+# ---------------------------------------------------------------------------
+# Numeric program
+# ---------------------------------------------------------------------------
+
+def _numeric_step(Np, Mb, W, L, K, syrk_bf16):
+    """One wave: the unrolled program's per-bucket arithmetic (POTRF, TRSM,
+    SYRK, masked panel write) on W panels, then the wave's sorted-segment
+    extend-add onto unique targets (pad entries land in the trash region
+    past the panels)."""
+    Mp = Np + Mb
+
+    def step(Lx, pos, ops):
+        P = _panels(Lx, ops["base"][pos], W, Mp, Np)
+        T = P[:, :Np, :]
+        Tfull = T + torch.tril(T, -1).transpose(1, 2)
+        C = cholesky_or_nan(Tfull + torch.diag_embed(ops["padeye"][pos]))
+        if Mb:
+            Bm = torch.linalg.solve_triangular(
+                C.transpose(1, 2), P[:, Np:, :], upper=True, left=False)
+            U = syrk(Bm, syrk_bf16)
+            newP = torch.cat([C, Bm], dim=1)
+        else:
+            newP = C
+        P.copy_(newP * ops["rowmask"][pos][:, :, None]
+                * ops["colmask"][pos][:, None, :])
+        if Mb and L:
+            # targets live in later waves only: hazard-free after the write
+            seg = segment_sum(U.reshape(-1)[ops["src"][pos]],
+                              ops["lens"][pos])
+            Lx[ops["dst"][pos]] -= seg
+    return step
+
+
+def wave_numeric(vals, wp: WavePlan, dtype, syrk_bf16=False, device=None):
+    """The numeric factorization as the wave program: A-assembly into the
+    zero (wp.buf,) buffer, then the stream of waves in schedule order.
+    Returns the buffer on ``device`` (the card unless "cpu" is asked
+    for).  A block that is not positive definite comes out NaN, as in the
+    reference, for factorize_super's scan."""
+    if wp.solve_only:
+        raise ValueError("wave plan was built solve_only; rebuild it with "
+                         "NumericPlan.wave_plan()")
+    dev = resolve_device(device)
+    dt = torch_dtype(dtype)
+    ops = wp.arrays(dt, dev)
+    key = ("amaps", dev)
+    amaps = wp._cache.get(key)
+    if amaps is None:
+        a_src, a_dst = _a_sorted_maps(wp.plan.ss)
+        amaps = (_index(a_src, dev), _index(a_dst, dev))
+        wp._cache[key] = amaps
+    vals = torch.as_tensor(vals, dtype=dt, device=dev)
+    Lx = assemble(vals, amaps[0], amaps[1], wp.buf)
+    steps = [_numeric_step(Np, Mb, W, L, K, syrk_bf16)
+             for (Np, Mb, W, L, K, *_r) in wp.meta]
+    for cid, pos in wp.seq:
+        steps[cid](Lx, pos, ops[cid])
+    return Lx
 
 
 def _dinv_layout(wp: "WavePlan"):

@@ -14,3 +14,4 @@ from .extra import (POSITIONAL_BINOPS, positional_mxm, positional_mxv,
                     pack_coo, unpack_coo, pack_full, unpack_full,
                     pack_bitmap, unpack_bitmap)
 from .algorithms import pagerank, bfs_levels, triangle_count
+from ..utils.serialize import matrix_serialize, matrix_deserialize

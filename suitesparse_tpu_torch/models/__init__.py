@@ -1,1 +1,2 @@
 from .ssmult import sfmult, ssmult
+from . import ldl

@@ -131,3 +131,76 @@ def test_bcsr_spmm_cuda_rejects_other_block_sizes():
     bc = spmv.to_bcsr(SparseCSC.from_scipy(S), bm=64, bk=64)
     with pytest.raises(ValueError):
         spmv.bcsr_spmm(bc, torch.ones((200, 4), device="cuda"))
+
+
+@pytest.mark.gpu
+def test_dispatch_probe_kernels_match_plain():
+    """scale_blocks and scale_gather vs their plain versions on the card,
+    bit for bit (one float32 multiply by the same constant), G in {1, 64,
+    256}, one and four thread blocks a grid step, reversed and random
+    covering offsets."""
+    from suitesparse_tpu_torch.tools import microbench_dispatch as probe
+    _need_card()
+    rng = np.random.default_rng(6)
+    for G in (1, 64, 256):
+        rows = G * probe.ROWS
+        buf = torch.as_tensor(rng.standard_normal((rows, probe.COLS)),
+                              dtype=torch.float32, device="cuda")
+        P = probe.scale_blocks_plain(buf, G)
+        for split in (1, 4):
+            before = probe.scale_blocks.launches
+            K = probe.scale_blocks(buf, G, split=split)
+            assert probe.scale_blocks.launches == before + 1
+            torch.cuda.synchronize()
+            assert torch.equal(K, P)
+        for perm in (np.arange(G)[::-1], rng.permutation(G)):
+            table = probe.GatherTable(perm * probe.ROWS, rows)
+            for split in (1, 4):
+                before = probe.scale_gather.launches
+                Kg = probe.scale_gather(table, buf, split=split)
+                assert probe.scale_gather.launches == before + 1
+                torch.cuda.synchronize()
+                assert torch.equal(Kg, probe.scale_gather_plain(table, buf))
+                assert torch.equal(Kg, P)
+
+
+@pytest.mark.gpu
+def test_dispatch_probe_kernels_refuse_bad_launches():
+    from suitesparse_tpu_torch.tools import microbench_dispatch as probe
+    _need_card()
+    buf = torch.zeros((2 * probe.ROWS, probe.COLS), device="cuda")
+    with pytest.raises(ValueError):
+        probe.scale_gather(torch.zeros(2, dtype=torch.int32, device="cuda"),
+                           buf)
+    with pytest.raises(ValueError):
+        probe.scale_gather(np.array([0, probe.ROWS - 8]), buf)
+    with pytest.raises(RuntimeError, match="launch"):
+        probe.scale_blocks(buf, 2, split=3)
+
+
+@pytest.mark.gpu
+def test_wave_and_bf16_factors_on_card_match_cpu():
+    """laplacian_3d(10) on the card against the plain CPU run: the wave
+    program and syrk_bf16 (pf) in float64, where the card's bf16 SYRK
+    rounds the inputs and multiplies in float64 as the CPU does (1e-12);
+    syrk_bf16 in float32, where the card runs one bf16 product with float32
+    output on the tensor cores and the CPU multiplies the rounded inputs
+    in float32 (the same products, summed in another order: 1e-4)."""
+    _need_card()
+    A = laplacian_3d(10)
+    for program, bf16, dtype, tol in (("wave", False, np.float64, 1e-12),
+                                      ("pf", True, np.float64, 1e-12),
+                                      ("pf", True, np.float32, 1e-4)):
+        cm = default_common()
+        cm.cholesky.supernodal = "supernodal"
+        cm.cholesky.program = program
+        cm.cholesky.syrk_bf16 = bf16
+        sym = analyze(A, cm)
+        ss = super_symbolic(A, sym, cm)
+        fg = factorize_super(A, sym, ss, common=cm, dtype=dtype)
+        fc = factorize_super(A, sym, ss, common=cm, dtype=dtype,
+                             device="cpu")
+        assert fg.ok and fg.Lx.device.type == "cuda"
+        t = fg.plan.total
+        got, want = fg.Lx[:t].cpu(), fc.Lx[:t]
+        assert float((got - want).abs().max() / want.abs().max()) <= tol

@@ -78,3 +78,21 @@ def test_pf_refactorization_is_repeatable_and_reuses_plan():
     assert torch.equal(F1, F1b)
     t = pp.total
     assert torch.allclose(F2[:t], 2.0 * F1[:t], rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("gen,arg", [("laplacian_3d", 12),
+                                     ("laplacian_3d", 16)])
+def test_pf_numeric_bf16_matches_reference(gen, arg):
+    """syrk_bf16 at both of its pf sites -- the factor step's SYRK and the
+    pair projection's placement (laplacian_3d(16) has pair instructions
+    of every kind, one-hot and gather placement both) -- in float64:
+    1e-12 relative to the reference's bfloat16 run, and visibly off the
+    plain factor."""
+    (rp, rq, rv), (pp, pq, pv) = _both(gen, arg)
+    assert len(pq.qmeta) > 0
+    want = np.asarray(ref_pf.pf_numeric(rv, rq, np.float64, syrk_bf16=True))
+    got = port_pf.pf_numeric(pv, pq, np.float64, syrk_bf16=True,
+                             device="cpu").numpy()
+    assert _rel(got, want, rp.total) < 1e-12
+    plain = port_pf.pf_numeric(pv, pq, np.float64, device="cpu").numpy()
+    assert 1e-6 < _rel(got, plain, rp.total) < 1e-2

@@ -1,6 +1,6 @@
 """Package-level contracts of the PyTorch port: it stands alone (no jax,
-no suitesparse_tpu), its entry points default to the card and raise
-without one, and the parts not ported yet refuse clearly."""
+no suitesparse_tpu), and its entry points default to the card and raise
+without one."""
 import os
 import subprocess
 import sys
@@ -21,8 +21,12 @@ _ISOLATION = """
 import sys
 import suitesparse_tpu_torch
 import suitesparse_tpu_torch.cholesky
+import suitesparse_tpu_torch.cholesky.api
+import suitesparse_tpu_torch.cholesky.extra
 import suitesparse_tpu_torch.cholesky.kernels
+import suitesparse_tpu_torch.cholesky.modify
 import suitesparse_tpu_torch.cholesky.pf
+import suitesparse_tpu_torch.cholesky.simplicial
 import suitesparse_tpu_torch.cholesky.super_numeric
 import suitesparse_tpu_torch.cholesky.wave
 import suitesparse_tpu_torch.io.generators
@@ -37,7 +41,12 @@ import suitesparse_tpu_torch.graphblas.core
 import suitesparse_tpu_torch.graphblas.extra
 import suitesparse_tpu_torch.graphblas.objects
 import suitesparse_tpu_torch.models
+import suitesparse_tpu_torch.models.ldl
 import suitesparse_tpu_torch.models.ssmult
+import suitesparse_tpu_torch.tools
+import suitesparse_tpu_torch.tools.microbench_dispatch
+import suitesparse_tpu_torch.utils
+import suitesparse_tpu_torch.utils.serialize
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
@@ -75,6 +84,37 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         port_pf.pf_numeric(vals, plan.pf_plan(cm), np.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
         port_sn.factor_from_numpy(plan, np.zeros(plan.total + 1), sym.perm)
+
+
+def test_front_end_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """cholesky / CholeskySolver / spsolve_chol on the supernodal real
+    path, the wave program, the probes and load_super_factor run on the
+    card when no device is given, and raise without one."""
+    from suitesparse_tpu_torch.cholesky import wave as port_wave
+    from suitesparse_tpu_torch.tools import microbench_dispatch as probe
+    from suitesparse_tpu_torch.utils import serialize
+    A, cm, sym, ss = _setup(program="wave")
+    f = port_sn.factorize_super(A, sym, ss, common=cm, device="cpu")
+    serialize.save_super_factor(tmp_path / "f.npz", f)
+    plan = port_sn.build_plan(ss)
+    vals = port_sn._assemble_values(A, sym, ss, np.float32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: port_wave.wave_numeric(vals, plan.wave_plan(), np.float32),
+        lambda: port_chol.cholesky(A, default_common(), mode="supernodal"),
+        lambda: port_chol.spsolve_chol(A, np.ones(A.ncol), cm,
+                                       refine_steps=1),
+        lambda: serialize.load_super_factor(tmp_path / "f.npz"),
+        lambda: probe.main(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    # the simplicial switch and complex matrices run the host code
+    cs = default_common()
+    cs.cholesky.supernodal = "simplicial"
+    x = port_chol.cholesky(A, cs).solve(np.ones(A.ncol))
+    assert port_chol.residual_norm(A, x, np.ones(A.ncol)) < 1e-12
 
 
 def test_sparse_product_entry_points_raise_without_a_card(monkeypatch):
@@ -135,16 +175,6 @@ def test_cpu_defaults_to_float64_and_dtype_is_honoured():
     b = np.ones(A.ncol)
     x = port_sn.solve_super(f32, b, "A", cm)
     assert port_chol.residual_norm(A, x.astype(np.float64), b) < 1e-5
-
-
-def test_unported_options_refuse():
-    A, cm, sym, ss = _setup(program="wave")
-    with pytest.raises(NotImplementedError, match="wave"):
-        port_sn.factorize_super(A, sym, ss, common=cm, device="cpu")
-    A, cm, sym, ss = _setup()
-    cm.cholesky.syrk_bf16 = True
-    with pytest.raises(NotImplementedError, match="syrk_bf16"):
-        port_sn.factorize_super(A, sym, ss, common=cm, device="cpu")
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
