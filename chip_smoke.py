@@ -30,6 +30,12 @@ the device busy time (union of the kernel intervals), the idle share
 against the median of the unprofiled refactorizations, and the device
 time per kernel group and for the top kernels.
 
+``block_chol`` is timed at each (W, Np) of one lap3d_44 factor with 50
+launches queued behind a spin kernel, so that the host's enqueue rate does
+not set the time of a kernel shorter than its launch; it and its yardstick
+``torch.linalg.cholesky_ex``, which waits on the host and cannot be
+queued, are also timed by their device busy time under torch.profiler.
+
 Output: one line per phase, then a ``{"kernels": [...]}`` line, the card's
 name and power limit (nvidia-smi), and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -55,6 +61,11 @@ PEAK_BYTES = 3.35e12
 # the port's CUDA sources, csrc/<name>.cu
 KERNELS = ("block_chol", "bcsr_spmm", "dispatch_probe")
 DISPATCH_G = (64, 256)        # grid sizes of the dispatch-floor probes
+# block_chol timing: launches a timed run, and the spin that holds the
+# stream while the host enqueues them (~10 ms at the H100's ~2 GHz)
+QUEUED_REPS = 50
+HOLD_CYCLES = 20_000_000
+BUSY_TRACE_S = 0.05            # least host time a busy-time trace spans
 FRONT_MATRIX = "lap3d_44"
 REFINE_STEPS = 3
 REFACTOR_REPS = 5
@@ -110,6 +121,52 @@ def event_ms(fn, reps: int, warm: int = 1) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def kernel_ms(fn) -> float:
+    """ms per call of QUEUED_REPS back-to-back calls queued behind a spin
+    kernel (the probe tool's ``device_time``), so that the events time
+    the device's work and not the host's enqueue rate (a ctypes launch
+    costs the host 20-39 us, longer than a small kernel runs); it raises
+    unless the host queued every call before the spin let go."""
+    from suitesparse_tpu_torch.tools.microbench_dispatch import device_time
+    return device_time(fn, [()], reps=QUEUED_REPS,
+                       hold_cycles=HOLD_CYCLES) * 1e3
+
+
+def busy_ms(fn, reps: int = 20, tries: int = 3) -> float:
+    """ms per call of the device's busy time under torch.profiler: the
+    union of the kernel and copy intervals of at least ``reps`` calls
+    (as many more as fill BUSY_TRACE_S of host time), which leaves out
+    the gaps between them (and so any wait on the host).  Traces of a few
+    ms now and then came back with no device work at all on an H100, so
+    each trace lasts BUSY_TRACE_S, and an empty one is taken again, up to
+    ``tries`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    fn()
+    sync()
+    path = os.path.join(PROFILE_DIR, "busy.json")
+    for attempt in range(1, tries + 1):
+        with torch.profiler.profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
+            calls, t0 = 0, time.perf_counter()
+            while calls < reps or time.perf_counter() - t0 < BUSY_TRACE_S:
+                fn()
+                calls += 1
+            sync()
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+        spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                 and "dur" in e]
+        if spans:
+            return _busy_us(spans) / 1e3 / calls
+        log(f"[kernel] busy_ms: trace {attempt} of {tries} recorded no "
+            f"device work")
+    raise RuntimeError(f"check failed: {tries} traces recorded no device "
+                       f"work")
+
+
 def spd_batch(rng, W, Np, dtype, npad=0):
     """Seeded SPD batch (W, Np, Np) with ``npad`` padded trailing rows
     (zero rows/columns, unit pivot through pe), on the card."""
@@ -160,21 +217,26 @@ def phase_setup():
 
 
 def phase_kernel_vs_plain():
-    """block_chol kernel vs its plain version, every Np of the ladders."""
+    """block_chol kernel vs its plain version at every Np it takes (every
+    multiple of 8 in 8..128, ragged last panels included), W in
+    {1, 4, 37, 512}; then a negative pivot in the first, a middle and the
+    last panel, where the NaN pattern must be the plain version's."""
     import torch
     from suitesparse_tpu_torch.cholesky.kernels import (block_chol,
                                                         block_chol_plain)
     rng = np.random.default_rng(0)
-    # tolerances: kernel and plain run the same rank-1 updates but the
-    # kernel fuses each multiply-subtract (FMA) and computes rsqrt with
-    # the device intrinsic, so results differ by rounding accumulated over
-    # Np steps: ~Np ulp of the working type at worst
+    # tolerances: kernel and plain run the same rank-1 updates in the same
+    # column order, but the kernel fuses each multiply-subtract (FMA) and
+    # computes rsqrt with the device intrinsic, so results differ by
+    # rounding accumulated over Np steps: ~Np ulp of the working type
     tol = {torch.float64: 1e-12, torch.float32: 1e-5}
     worst = {}
-    for dt in (torch.float64, torch.float32):
-        for Np in (8, 16, 32, 64, 128):
-            for W in (1, 37, 512):
-                S, pe = spd_batch(rng, W, Np, dt, npad=Np // 8)
+    nps = range(8, 129, 8)
+    for Np in nps:
+        for W in (1, 4, 37, 512):
+            S64, pe64 = spd_batch(rng, W, Np, torch.float64, npad=Np // 8)
+            for dt in (torch.float64, torch.float32):
+                S, pe = S64.to(dt), pe64.to(dt)
                 K = block_chol(S, pe)
                 P = block_chol_plain(S, pe)
                 sync()
@@ -186,22 +248,27 @@ def phase_kernel_vs_plain():
                 check(err <= tol[dt],
                       f"block_chol vs plain W={W} Np={Np} {dt}: {err:.2e}")
                 worst[dt] = max(worst.get(dt, 0.0), err)
-    log(f"[kernel] block_chol vs plain, Np in 8..128, W in 1/37/512: max "
-        f"relative error f64 {worst[torch.float64]:.3e} (tol 1e-12), "
-        f"f32 {worst[torch.float32]:.3e} (tol 1e-5)")
+    log(f"[kernel] block_chol vs plain, every Np in 8..128 step 8, W in "
+        f"1/4/37/512: max relative error f64 {worst[torch.float64]:.3e} "
+        f"(tol 1e-12), f32 {worst[torch.float32]:.3e} (tol 1e-5)")
     # NaN contract: a negative pivot must come out as NaN, as in the plain
-    for dt in (torch.float64, torch.float32):
-        S, pe = spd_batch(rng, 4, 32, dt)
-        S[1, 5, 5] = -5.0
-        K = block_chol(S, pe)
-        P = block_chol_plain(S, pe)
-        sync()
-        check(bool(torch.isnan(K[1]).any()), "no NaN on indefinite block")
-        check(bool(torch.isfinite(K[[0, 2, 3]]).all()),
-              "NaN leaked into definite blocks")
-        check(torch.equal(torch.isnan(K), torch.isnan(P)),
-              "kernel and plain disagree on the NaN pattern")
-    log("[kernel] NaN on a non-positive pivot: held (f64, f32)")
+    for Np in nps:
+        S64, pe64 = spd_batch(rng, 4, Np, torch.float64)
+        for w, c in ((1, 1), (2, Np // 2), (3, Np - 3)):
+            S64[w, c, c] = -5.0
+        for dt in (torch.float64, torch.float32):
+            K = block_chol(S64.to(dt), pe64.to(dt))
+            P = block_chol_plain(S64.to(dt), pe64.to(dt))
+            sync()
+            check(all(bool(torch.isnan(K[w]).any()) for w in (1, 2, 3)),
+                  f"no NaN on an indefinite block, Np={Np} {dt}")
+            check(bool(torch.isfinite(K[0]).all()),
+                  f"NaN leaked into the definite block, Np={Np} {dt}")
+            check(torch.equal(torch.isnan(K), torch.isnan(P)),
+                  f"kernel and plain disagree on the NaN pattern, Np={Np}")
+    log("[kernel] NaN on a non-positive pivot in the first, a middle and "
+        "the last panel, the plain version's pattern: held at every Np "
+        "(f64, f32)")
 
 
 def phase_small_parity():
@@ -405,38 +472,67 @@ def run_matrix(name: str, reps: int):
 
 
 def kernel_line(shapes, launches, dev_kind):
-    """Time block_chol at the (W, Np) shapes of one lap3d_44 factor, beside
-    its plain version, its bound and torch.linalg.cholesky (yardstick)."""
+    """Time block_chol at the (W, Np) shapes of one lap3d_44 factor on the
+    device's clock, queued behind a spin (``kernel_ms``: the gaps between
+    launches included), beside its plain version, its bound and the
+    yardstick ``torch.linalg.cholesky_ex`` on the precomputed S + diag(pe).
+    The yardstick waits on the host at W >= 2, so it cannot be queued: it
+    is timed by its device busy time (``busy_ms``, gaps left out) at every
+    shape, and so is the kernel, beside its queued time.  The former
+    yardstick, ``torch.linalg.cholesky(S + torch.diag_embed(pe))`` by
+    back-to-back CUDA events, which syncs with the host on every call, is
+    logged beside them so that earlier tables connect."""
     import torch
     from suitesparse_tpu_torch.cholesky.kernels import (block_chol,
                                                         block_chol_plain)
     rng = np.random.default_rng(2)
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-               bytes_ms=0.0, ops_ms=0.0)
+    keys = ("ms", "busy_ms", "plain_ms", "bound_ms", "library_ms",
+            "old_library_ms", "bytes_ms", "ops_ms")
+    tot = dict.fromkeys(keys, 0.0)
     max_abs = 0.0
+    w1 = None
     for (W, Np), cnt in sorted(shapes.items()):
         S, pe = spd_batch(rng, W, Np, torch.float32, npad=Np // 8)
+        A = S + torch.diag_embed(pe)
         K = block_chol(S, pe)
         P = block_chol_plain(S, pe)
         check(rel_err(K, P) <= 1e-5,
               f"block_chol vs plain at the main path's W={W} Np={Np}")
+        L, info = torch.linalg.cholesky_ex(A)
+        check(int(info.abs().max()) == 0 and rel_err(L.mT, K) <= 1e-5,
+              f"cholesky_ex vs block_chol at W={W} Np={Np}")
         max_abs = max(max_abs, float((K - P).abs().max()))
-        ms = event_ms(lambda: block_chol(S, pe), 50)
-        plain = event_ms(lambda: block_chol_plain(S, pe), 3)
-        lib = event_ms(lambda: torch.linalg.cholesky(
+        ms = kernel_ms(lambda: block_chol(S, pe))
+        busy = busy_ms(lambda: block_chol(S, pe))
+        lib = busy_ms(lambda: torch.linalg.cholesky_ex(A))
+        old = event_ms(lambda: torch.linalg.cholesky(
             S + torch.diag_embed(pe)), 20)
+        plain = event_ms(lambda: block_chol_plain(S, pe), 3)
         t_bytes = (2 * W * Np * Np + W * Np) * 4 / PEAK_BYTES * 1e3
         t_ops = W * Np ** 3 / 3 / PEAK_F32_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
         log(f"[kernel] block_chol W={W} Np={Np} x{cnt}/factor: "
-            f"{ms * 1e3:.2f} us (plain {plain * 1e3:.1f} us, bound "
-            f"{bound * 1e3:.3f} us by "
+            f"{ms * 1e3:.2f} us queued, {busy * 1e3:.2f} us busy (plain "
+            f"{plain * 1e3:.1f} us, bound {bound * 1e3:.3f} us by "
             f"{'bytes' if t_bytes >= t_ops else 'operations'}, "
-            f"torch.linalg.cholesky {lib * 1e3:.1f} us) on {dev_kind}")
-        for k, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
-                     ("library_ms", lib), ("bytes_ms", t_bytes),
-                     ("ops_ms", t_ops)):
+            f"torch.linalg.cholesky_ex {lib * 1e3:.2f} us busy; former "
+            f"yardstick torch.linalg.cholesky(S + "
+            f"diag_embed(pe)) {old * 1e3:.1f} us by back-to-back events) on "
+            f"{dev_kind}")
+        if (W, Np) == (1, 128):
+            w1 = dict(ms=ms, busy_ms=busy, library_ms=lib)
+            log(f"[kernel] block_chol latency of one 128 x 128 factor (W=1, "
+                f"Np=128): {ms * 1e3:.2f} us queued, {busy * 1e3:.2f} us "
+                f"busy on the device's clock; torch.linalg.cholesky_ex "
+                f"{lib * 1e3:.2f} us busy")
+        for k, v in zip(keys, (ms, busy, plain, bound, lib, old, t_bytes,
+                               t_ops)):
             tot[k] += cnt * v
+    log(f"[kernel] block_chol per lap3d_44 factor: {tot['ms']:.4f} ms "
+        f"queued, {tot['busy_ms']:.4f} ms busy (torch.linalg.cholesky_ex "
+        f"{tot['library_ms']:.4f} ms busy, former yardstick "
+        f"{tot['old_library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms) "
+        f"on {dev_kind}")
     return dict(name="block_chol", route="cuda",
                 source="suitesparse_tpu_torch/csrc/block_chol.cu",
                 replaces="suitesparse_tpu/cholesky/pallas_kernels.py:68",
@@ -446,7 +542,20 @@ def kernel_line(shapes, launches, dev_kind):
                 bound_by=("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
                           else "operations"),
                 library_ms=tot["library_ms"],
-                timed_as="one lap3d_44 factor's launches, shape by shape")
+                busy_ms=tot["busy_ms"],
+                old_library_ms=tot["old_library_ms"],
+                ms_w1_np128=w1 and w1["ms"],
+                busy_ms_w1_np128=w1 and w1["busy_ms"],
+                library_ms_w1_np128=w1 and w1["library_ms"],
+                timed_as=f"one lap3d_44 factor's launches, shape by shape: "
+                         f"ms with {QUEUED_REPS} launches queued behind a "
+                         f"spin kernel (gaps between launches included); "
+                         f"busy_ms and library_ms (torch.linalg.cholesky_ex "
+                         f"on the precomputed S + diag(pe)) as device busy "
+                         f"time under torch.profiler (gaps left out); "
+                         f"old_library_ms the former "
+                         f"torch.linalg.cholesky(S + diag_embed(pe)) by "
+                         f"back-to-back events")
 
 
 # -- the sparse-product slice ----------------------------------------------

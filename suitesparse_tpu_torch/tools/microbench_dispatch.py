@@ -266,24 +266,34 @@ def run(fn, *args, reps: int = REPS, **kw) -> float:
     return (time.perf_counter() - t0) / reps
 
 
-def device_time(fn, arg_sets, reps: int = REPS, **kw) -> float:
+def device_time(fn, arg_sets, reps: int = REPS, *,
+                hold_cycles: int = HOLD_CYCLES, **kw) -> float:
     """s per call of ``reps`` back-to-back calls on the device's clock
     (CUDA events), cycling through ``arg_sets`` (tuples of arguments).  A
-    spin kernel holds the stream while the host enqueues the calls, so
-    the events time the device's work back to back, not the host's
-    enqueue rate (a launch through ctypes costs the host ~20 us, longer
-    than a small kernel runs)."""
+    spin kernel of ``hold_cycles`` holds the stream while the host
+    enqueues the calls, so the events time the device's work back to
+    back, not the host's enqueue rate (a launch through ctypes costs the
+    host ~20 us, longer than a small kernel runs).  Raises RuntimeError if
+    the host took longer to enqueue the calls than the spin ran: the
+    events would then time the host again."""
     for args in arg_sets:
         fn(*args, **kw)
     torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(HOLD_CYCLES)
+    es, e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    t0 = time.perf_counter()
+    es.record()
+    torch.cuda._sleep(hold_cycles)
     e0.record()
     for i in range(reps):
         fn(*arg_sets[i % len(arg_sets)], **kw)
     e1.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
+    spin_ms = es.elapsed_time(e0)
+    if host_ms >= spin_ms:
+        raise RuntimeError(f"device_time: enqueueing {reps} calls took "
+                           f"{host_ms:.2f} ms, longer than the "
+                           f"{spin_ms:.2f} ms spin")
     return e0.elapsed_time(e1) / 1e3 / reps
 
 

@@ -34,31 +34,50 @@ def _spd_batch(rng, W, Np, npad):
 
 
 @pytest.mark.gpu
-def test_block_chol_cuda_kernel_matches_plain():
-    """The CUDA kernel vs its plain version on the card, every Np of the
-    ladders, f64 (1e-12) and f32 (1e-5): the same rank-1 updates, rounded
-    differently (fused multiply-add, device rsqrt)."""
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("Np", range(8, 129, 8))
+def test_block_chol_cuda_kernel_matches_plain(Np, dtype, tol):
+    """The CUDA kernel vs its plain version on the card, every Np the
+    kernel takes (ragged last panels included), W in {1, 4, 37, 512}: the
+    same rank-1 updates in the same column order, rounded differently
+    (fused multiply-adds, device rsqrt), so ~Np ulp apart at worst."""
     _need_card()
-    rng = np.random.default_rng(3)
-    for dt, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-        for Np in (8, 16, 32, 64, 128):
-            for W in (1, 37, 512):
-                S, pe = _spd_batch(rng, W, Np, Np // 8)
-                S = torch.as_tensor(S, dtype=dt, device="cuda")
-                pe = torch.as_tensor(pe, dtype=dt, device="cuda")
-                before = kernels.block_chol.launches
-                K = kernels.block_chol(S, pe)
-                assert kernels.block_chol.launches == before + 1
-                P = kernels.block_chol_plain(S, pe)
-                torch.cuda.synchronize()
-                assert float((K - P).abs().max() / P.abs().max()) <= tol
-                assert bool((torch.tril(K, -1) == 0).all())
-        S, pe = _spd_batch(rng, 4, 32, 0)
-        S[1, 5, 5] = -5.0
-        K = kernels.block_chol(torch.as_tensor(S, dtype=dt, device="cuda"),
-                               torch.as_tensor(pe, dtype=dt, device="cuda"))
-        assert bool(torch.isnan(K[1]).any())
-        assert bool(torch.isfinite(K[[0, 2, 3]]).all())
+    rng = np.random.default_rng(Np)
+    for W in (1, 4, 37, 512):
+        S, pe = _spd_batch(rng, W, Np, Np // 8)
+        S = torch.as_tensor(S, dtype=dtype, device="cuda")
+        pe = torch.as_tensor(pe, dtype=dtype, device="cuda")
+        before = kernels.block_chol.launches
+        K = kernels.block_chol(S, pe)
+        assert kernels.block_chol.launches == before + 1
+        P = kernels.block_chol_plain(S, pe)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(K).all())
+        assert float((K - P).abs().max() / P.abs().max()) <= tol
+        assert bool((torch.tril(K, -1) == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("Np", range(8, 129, 8))
+def test_block_chol_cuda_nan_pattern_matches_plain(Np, dtype):
+    """A negative pivot in the first, a middle and the last panel (columns
+    1, Np / 2 and Np - 3 of matrices 1-3 of the batch): the kernel's NaN
+    pattern is the plain version's, and the definite matrix 0 stays
+    finite."""
+    _need_card()
+    S, pe = _spd_batch(np.random.default_rng(100 + Np), 4, Np, 0)
+    for w, c in ((1, 1), (2, Np // 2), (3, Np - 3)):
+        S[w, c, c] = -5.0
+    S = torch.as_tensor(S, dtype=dtype, device="cuda")
+    pe = torch.as_tensor(pe, dtype=dtype, device="cuda")
+    K = kernels.block_chol(S, pe)
+    P = kernels.block_chol_plain(S, pe)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(K), torch.isnan(P))
+    assert bool(torch.isfinite(K[0]).all())
+    assert all(bool(torch.isnan(K[w]).any()) for w in (1, 2, 3))
 
 
 @pytest.mark.gpu

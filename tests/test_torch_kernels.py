@@ -87,7 +87,7 @@ def test_panel_factor_nan_on_indefinite():
     assert np.isnan(want[0, :6, :6]).any()
 
 
-@pytest.mark.parametrize("Np", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("Np", [8, 16, 24, 32, 40, 64, 120, 128])
 def test_block_chol_plain_matches_reference(Np):
     """U = chol(S + diag(pe))^T with exact zeros below the diagonal."""
     rng = np.random.default_rng(Np)
