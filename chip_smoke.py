@@ -61,6 +61,9 @@ PEAK_BYTES = 3.35e12
 # the port's CUDA sources, csrc/<name>.cu
 KERNELS = ("block_chol", "bcsr_spmm", "dispatch_probe")
 DISPATCH_G = (64, 256)        # grid sizes of the dispatch-floor probes
+# grid sizes they are checked at: chunk counts that are no multiple of the
+# persistent grid, and grids smaller than the SM count
+DISPATCH_CHECK_G = (1, 3, 64, 131, 256, 257)
 # block_chol timing: launches a timed run, and the spin that holds the
 # stream while the host enqueues them (~10 ms at the H100's ~2 GHz)
 QUEUED_REPS = 50
@@ -124,8 +127,8 @@ def event_ms(fn, reps: int, warm: int = 1) -> float:
 def kernel_ms(fn) -> float:
     """ms per call of QUEUED_REPS back-to-back calls queued behind a spin
     kernel (the probe tool's ``device_time``), so that the events time
-    the device's work and not the host's enqueue rate (a ctypes launch
-    costs the host 20-39 us, longer than a small kernel runs); it raises
+    the device's work and not the host's enqueue rate (a launch costs the
+    host longer than a small kernel runs); it raises
     unless the host queued every call before the spin let go."""
     from suitesparse_tpu_torch.tools.microbench_dispatch import device_time
     return device_time(fn, [()], reps=QUEUED_REPS,
@@ -878,49 +881,55 @@ def bcsr_kernel_line(bc, Xs, launches, dev_kind):
 
 def phase_dispatch_vs_plain() -> dict:
     """scale_blocks and scale_gather vs their plain versions on the card,
-    bit for bit (one float32 multiply by the same constant), at the
-    probe's grid sizes, one and four thread blocks a grid step, reversed
-    and random covering offsets; returns the largest |kernel - plain| of
-    each (0.0 when they agree)."""
+    bit for bit (one float32 multiply by the same constant), at every G of
+    DISPATCH_CHECK_G, offsets reversed, random and sparse (only the named
+    rows compared); overlapping windows and a misaligned buffer refused.
+    Returns the largest |kernel - plain| of each (0.0 when they agree)."""
     import torch
     from suitesparse_tpu_torch.tools import microbench_dispatch as probe
     rng = np.random.default_rng(8)
     worst = dict(scale_blocks=0.0, scale_gather=0.0)
-    for G in DISPATCH_G:
+    for G in DISPATCH_CHECK_G:
         rows = G * probe.ROWS
         buf = torch.as_tensor(rng.standard_normal((rows, probe.COLS)),
                               dtype=torch.float32, device="cuda")
         P = probe.scale_blocks_plain(buf, G)
-        for split in (1, 4):
-            K = probe.scale_blocks(buf, G, split=split)
-            sync()
-            worst["scale_blocks"] = max(worst["scale_blocks"],
-                                        float((K - P).abs().max()))
-            check(torch.equal(K, P),
-                  f"scale_blocks G={G} split={split} differs from plain")
-        for order in ("reversed", "random"):
-            perm = np.arange(G)[::-1] if order == "reversed" else \
-                rng.permutation(G)
-            table = probe.GatherTable(perm * probe.ROWS, rows)
+        K = probe.scale_blocks(buf, G)
+        sync()
+        worst["scale_blocks"] = max(worst["scale_blocks"],
+                                    float((K - P).abs().max()))
+        check(torch.equal(K, P), f"scale_blocks G={G} differs from plain")
+        for order in ("reversed", "random", "sparse"):
+            offs = (np.arange(G)[::-1] * probe.ROWS if order == "reversed"
+                    else rng.permutation(G) * probe.ROWS
+                    if order == "random" else
+                    probe.sparse_offsets(rng, G))
+            table = probe.GatherTable(offs, rows)
+            named = table.row_index(buf.device)
             Pg = probe.scale_gather_plain(table, buf)
-            check(torch.equal(Pg, P), "covering offsets must write every row")
-            for split in (1, 4):
-                Kg = probe.scale_gather(table, buf, split=split)
-                sync()
-                worst["scale_gather"] = max(worst["scale_gather"],
-                                            float((Kg - Pg).abs().max()))
-                check(torch.equal(Kg, Pg), f"scale_gather G={G} {order} "
-                      f"split={split} differs from plain")
-    refused = False
+            check(torch.equal(Pg[named], P[named]),
+                  "plain scale_gather differs from plain scale_blocks")
+            Kg = probe.scale_gather(table, buf)
+            sync()
+            worst["scale_gather"] = max(
+                worst["scale_gather"],
+                float((Kg[named] - Pg[named]).abs().max()))
+            check(torch.equal(Kg[named], Pg[named]),
+                  f"scale_gather G={G} {order} differs from plain")
+    refused = []
     try:
         probe.scale_gather(np.array([0, probe.ROWS // 2]), buf)
     except ValueError:
-        refused = True
-    check(refused, "scale_gather accepted overlapping offset windows")
+        refused.append("overlapping offsets")
+    flat = torch.zeros(probe.ROWS * probe.COLS + 1, device="cuda")
+    try:
+        probe.scale_blocks(flat[1:].view(probe.ROWS, probe.COLS), 1)
+    except RuntimeError:
+        refused.append("a misaligned buffer")
+    check(len(refused) == 2, f"the probes refused only {refused}")
     log(f"[dispatch] scale_blocks and scale_gather vs plain at G in "
-        f"{list(DISPATCH_G)}, 1 and 4 blocks a step, reversed and random "
-        f"offsets: bit-identical (max |diff| {worst}); overlapping offsets "
-        f"refused")
+        f"{list(DISPATCH_CHECK_G)}, reversed, random and sparse offsets: "
+        f"bit-identical (max |diff| {worst}); refused {' and '.join(refused)}")
     return worst
 
 
@@ -929,15 +938,21 @@ def dispatch_kernel_lines(res, launches, max_abs, dev_kind):
     times (CUDA events over 20 launches queued behind a spin kernel, on
     buffers that together exceed the L2 cache), beside their plain
     versions (timed the same way) and their bound, summed over the grid
-    sizes; ``torch.mul`` is the library call of the same function."""
+    sizes; ``torch.mul`` is the library call of the same function.  Each
+    also carries its one-block time (warm) and host times per call from
+    the launch-floor line, beside torch.mul's."""
     from suitesparse_tpu_torch.tools import microbench_dispatch as probe
     out = []
-    for name, key, line, gathered in (
-            ("scale_blocks", "kernel", 69, False),
-            ("scale_gather", "gathered", 92, True)):
+    floor = res["floor"]
+    for name, key, line, gathered, fkey in (
+            ("scale_blocks", "kernel", 69, False, "kernel"),
+            ("scale_gather", "gathered", 92, True, "gather")):
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                    bytes_ms=0.0, ops_ms=0.0)
-        extra = {}
+        extra = {"ms_G1": floor[f"{fkey}_device_s"] * 1e3,
+                 "host_ms_G1": floor[f"{fkey}_host_s"] * 1e3,
+                 "library_ms_G1": floor["mul_device_s"] * 1e3,
+                 "library_host_ms_G1": floor["mul_host_s"] * 1e3}
         for G in DISPATCH_G:
             r = res[key][G]
             rows = G * probe.ROWS
@@ -958,9 +973,9 @@ def dispatch_kernel_lines(res, launches, max_abs, dev_kind):
             t_ops = rows * probe.COLS / PEAK_F32_FLOPS * 1e3
             ms, lib = r["device_s"] * 1e3, r["mul_s"] * 1e3
             log(f"[kernel] {name} G={G}: {ms * 1e3:.2f} us on the device "
-                f"({ms * 1e3 / G:.3f} us/block; one block a step "
-                f"{r['device_s_split1'] * 1e6:.2f} us), {r['host_s'] * 1e6:.2f} us "
-                f"a call on the host clock; plain {plain * 1e3:.2f} us, "
+                f"({ms * 1e3 / G:.3f} us/block), {r['host_s'] * 1e6:.2f} us "
+                f"a call on the host clock (torch.mul "
+                f"{r['mul_host_s'] * 1e6:.2f}); plain {plain * 1e3:.2f} us, "
                 f"torch.mul {lib * 1e3:.2f} us, bound "
                 f"{max(t_bytes, t_ops) * 1e3:.2f} us by bytes on {dev_kind}")
             for k, v in (("ms", ms), ("plain_ms", plain),
@@ -969,9 +984,8 @@ def dispatch_kernel_lines(res, launches, max_abs, dev_kind):
                          ("ops_ms", t_ops)):
                 tot[k] += v
             extra.update({f"ms_G{G}": ms, f"host_ms_G{G}": r["host_s"] * 1e3,
-                          f"ms_one_block_a_step_G{G}":
-                              r["device_s_split1"] * 1e3,
                           f"plain_ms_G{G}": plain, f"library_ms_G{G}": lib,
+                          f"library_host_ms_G{G}": r["mul_host_s"] * 1e3,
                           f"bound_ms_G{G}": max(t_bytes, t_ops)})
         out.append(dict(
             name=name, route="cuda",
@@ -984,7 +998,8 @@ def dispatch_kernel_lines(res, launches, max_abs, dev_kind):
             library_ms=tot["library_ms"],
             timed_as=f"one launch at each G in {list(DISPATCH_G)} (CUDA "
                      f"events over 20 launches queued behind a spin kernel, "
-                     f"L2-cold, in the probe's main()), summed",
+                     f"L2-cold, in the probe's main()), summed; *_G1: one "
+                     f"warm block, the launch-floor line",
             **extra))
     return out
 
@@ -1177,6 +1192,7 @@ def main() -> int:
     log(f"[main] probe launches on the probe path: {plaunch}")
     log(f"[dispatch] launch floors (s): {json.dumps(res['floor'])}; eager "
         f"op (chain) {json.dumps(res['chain'])}")
+    log(f"[dispatch] launch route (s a call): {json.dumps(res['route'])}")
     dlines = dispatch_kernel_lines(res, plaunch, worst, kind)
 
     # the Cholesky front end

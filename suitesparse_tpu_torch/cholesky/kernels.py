@@ -14,8 +14,6 @@ TPU compile choices, not semantics: the CUDA kernel takes any W.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..utils import cuda_build
@@ -23,22 +21,6 @@ from ..utils import cuda_build
 __all__ = ["block_chol", "block_chol_plain", "panel_factor"]
 
 _KERNEL_MAX_NP = 128
-_lib = None
-
-
-def _kernel_lib():
-    global _lib
-    if _lib is None:
-        lib = cuda_build.load("block_chol")
-        for name in ("sstpu_block_chol_f32", "sstpu_block_chol_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.sstpu_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.sstpu_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
 
 
 def block_chol_plain(S: torch.Tensor, pe: torch.Tensor) -> torch.Tensor:
@@ -83,15 +65,9 @@ def block_chol(S: torch.Tensor, pe: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(S)
     if W == 0:
         return out
-    lib = _kernel_lib()
-    fn = (lib.sstpu_block_chol_f32 if S.dtype == torch.float32
-          else lib.sstpu_block_chol_f64)
-    with torch.cuda.device(S.device):
-        stream = torch.cuda.current_stream(S.device).cuda_stream
-        err = fn(S.data_ptr(), pe.data_ptr(), out.data_ptr(), W, Np, stream)
-    if err:
-        raise RuntimeError("block_chol: kernel launch failed: "
-                           + lib.sstpu_cuda_error_string(err).decode())
+    cuda_build.launch("sstpu_block_chol_f32" if S.dtype == torch.float32
+                      else "sstpu_block_chol_f64", S, S.data_ptr(),
+                      pe.data_ptr(), out.data_ptr(), W, Np)
     block_chol.launches += 1
     return out
 

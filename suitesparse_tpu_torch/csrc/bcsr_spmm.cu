@@ -34,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kB = 128;       // block rows and columns (bm = bk)
@@ -129,23 +131,22 @@ extern "C" {
 
 // blocks: (nrb * nslots, 128, 128) float32, 16-byte aligned; block_cols:
 // (nrb * nslots,) int32 in [0, ceil(n / 128)); X: (n, k) float32; out:
-// (m, k) float32, m <= nrb * 128.  Returns a cudaError_t (0 on success).
+// (m, k) float32, m <= nrb * 128; all on device `dev`.  Returns a
+// cudaError_t (0 on success).
 int sstpu_bcsr_spmm_f32(const float* blocks, const int32_t* block_cols,
                         const float* X, float* out, int nrb, int nslots,
-                        int m, int n, int k, void* stream) {
+                        int m, int n, int k, int dev, void* stream) {
   if (nrb <= 0 || m <= 0 || k <= 0) return 0;
   if (nslots <= 0 || n <= 0 || m > nrb * kB)
     return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(blocks) % 16)
     return (int)cudaErrorMisalignedAddress;
+  sstpu::OnDevice on(dev);
+  if (on.error() != cudaSuccess) return (int)on.error();
   const dim3 grid(nrb, (k + kTN - 1) / kTN);
   bcsr_spmm_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       blocks, block_cols, X, out, nslots, m, n, k);
   return (int)cudaGetLastError();
-}
-
-const char* sstpu_bcsr_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
 }
 
 }  // extern "C"

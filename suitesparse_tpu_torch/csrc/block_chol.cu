@@ -60,6 +60,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kMaxNp = 128;
@@ -505,10 +507,12 @@ cudaError_t launch_warps(const T* S, const T* pe, T* out, int W, bool vec,
 // else over 128 (the registers of 256 threads fill an SM, so a larger
 // batch runs one block an SM); float64 always over 128.
 template <typename T>
-int launch(const T* S, const T* pe, T* out, int W, int Np,
+int launch(const T* S, const T* pe, T* out, int W, int Np, int dev,
            cudaStream_t stream) {
   if (W <= 0) return 0;
   if (Np <= 0 || Np > kMaxNp || Np % 8) return (int)cudaErrorInvalidValue;
+  sstpu::OnDevice on(dev);
+  if (on.error() != cudaSuccess) return (int)on.error();
   const bool vec = ((reinterpret_cast<uintptr_t>(S) |
                      reinterpret_cast<uintptr_t>(out)) & 15) == 0;
   cudaError_t err;
@@ -535,17 +539,13 @@ int launch(const T* S, const T* pe, T* out, int W, int Np,
 extern "C" {
 
 int sstpu_block_chol_f32(const float* S, const float* pe, float* out, int W,
-                         int Np, void* stream) {
-  return launch<float>(S, pe, out, W, Np, (cudaStream_t)stream);
+                         int Np, int dev, void* stream) {
+  return launch<float>(S, pe, out, W, Np, dev, (cudaStream_t)stream);
 }
 
 int sstpu_block_chol_f64(const double* S, const double* pe, double* out,
-                         int W, int Np, void* stream) {
-  return launch<double>(S, pe, out, W, Np, (cudaStream_t)stream);
-}
-
-const char*sstpu_cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
+                         int W, int Np, int dev, void* stream) {
+  return launch<double>(S, pe, out, W, Np, dev, (cudaStream_t)stream);
 }
 
 }  // extern "C"

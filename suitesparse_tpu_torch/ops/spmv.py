@@ -16,7 +16,6 @@ Two tiers, both pattern-static (the host work runs once per pattern):
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import numpy as np
@@ -217,23 +216,6 @@ def bcsr_spmm_plain(blocks: torch.Tensor, block_cols: torch.Tensor,
     return out.reshape(nrb * bm, k)[:m]
 
 
-_lib = None
-
-
-def _kernel_lib():
-    global _lib
-    if _lib is None:
-        lib = cuda_build.load("bcsr_spmm")
-        fn = lib.sstpu_bcsr_spmm_f32
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.sstpu_bcsr_error_string.argtypes = [ctypes.c_int]
-        lib.sstpu_bcsr_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
-
 def bcsr_spmm(bc: BCSR, X, device=None) -> torch.Tensor:
     """Y = A @ X with A in uniform-slot BCSR, X dense (n, k), in float32.
 
@@ -258,15 +240,9 @@ def bcsr_spmm(bc: BCSR, X, device=None) -> torch.Tensor:
     out = torch.empty((m, k), dtype=torch.float32, device=dev)
     if k == 0:
         return out
-    lib = _kernel_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sstpu_bcsr_spmm_f32(blocks.data_ptr(), cols.data_ptr(),
-                                      X.data_ptr(), out.data_ptr(), bc.nrb,
-                                      bc.nslots, m, n, k, stream)
-    if err:
-        raise RuntimeError("bcsr_spmm: kernel launch failed: "
-                           + lib.sstpu_bcsr_error_string(err).decode())
+    cuda_build.launch("sstpu_bcsr_spmm_f32", X, blocks.data_ptr(),
+                      cols.data_ptr(), X.data_ptr(), out.data_ptr(), bc.nrb,
+                      bc.nslots, m, n, k)
     bcsr_spmm.launches += 1
     return out
 

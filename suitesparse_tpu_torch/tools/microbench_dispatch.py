@@ -20,22 +20,32 @@ prints, in the reference tool's order:
               of a "VM" that reads its operands by offset).
 
 Each line's first time is the reference's ``run()``: one warm call, then
-20 calls on the host clock, ended by a readback of one element.  The two
-kernels' lines add their device time over 20 launches queued back to
-back behind a spin kernel (CUDA events), cycling through copies of the
-buffer that together exceed the L2 cache, with
-SPLIT thread blocks a grid step and with one (the TPU's grid), the time
-per block, and the time of ``torch.mul(buf, 1.0000001)``, the library call
-that computes the same function (for the gathered form because the
-offsets cover every row).  The G thread blocks of a launch run
-concurrently over the SMs, so a time per block is a share of one launch,
-not a serial cost per grid step as on the TPU.  A last line, beyond the
-reference's, gives the launch floors: a one-block launch of the kernel
-and of torch.mul on the host clock, beside the eager op of ``chain1``.
+20 calls on the host clock, ended by a readback of one element; the two
+kernels' lines give ``torch.mul(buf, 1.0000001)``'s the same way, the
+library call that computes the same function (for the gathered form
+because the offsets cover every row).  They add their device time over
+20 launches queued back to back behind a spin kernel (CUDA events),
+cycling through copies of the buffer that together exceed the L2 cache,
+the time per block, and torch.mul's device time taken the same way.  The
+G blocks of a launch run concurrently over the SMs, so a time per block
+is a share of one launch, not a serial cost per grid step as on the TPU.
+Two lines go beyond the reference:
+
+  launch floor  one-block launches of both kernels and of torch.mul on
+                the host clock (run()) and on the device's, beside the
+                eager op of ``chain1``;
+  launch route  where the host time of a one-block ``scale_blocks`` goes,
+                in us a call over 1000 calls: its checks, torch.empty_like,
+                the current stream's raw handle, the ctypes call (at G = 0,
+                which returns before any CUDA call, and at G = 1, with the
+                C side's launch), the whole wrapper, and torch.mul; beside
+                them what the route no longer does, a
+                ``torch.cuda.device`` guard and a ``torch.cuda.Stream``
+                lookup.  Every kernel of the port launches through this
+                route (``utils.cuda_build.launch``).
 """
 from __future__ import annotations
 
-import ctypes
 import time
 
 import numpy as np
@@ -45,7 +55,8 @@ from ..utils import cuda_build
 from ..utils.device import resolve_device
 
 __all__ = ["SCALE", "GatherTable", "chain", "main", "scale_blocks",
-           "scale_blocks_plain", "scale_gather", "scale_gather_plain"]
+           "scale_blocks_plain", "scale_gather", "scale_gather_plain",
+           "sparse_offsets"]
 
 SCALE = 1.0000001          # rounds to the float32 1 + 2**-23
 ROWS, COLS = 512, 128      # one block: one grid step of the TPU kernels
@@ -53,92 +64,56 @@ CHAIN_K = (1, 64, 256)
 BATCH_W = (1, 64)
 GRID_G = (64, 256)
 REPS = 20
-# thread blocks a grid step: a launch choice, not semantics.  One block a
-# step (the TPU's grid) leaves 68 of the 132 SMs idle at G = 64; four
-# fill the card at both grid sizes
-SPLIT = 4
+ROUTE_CALLS = 1000         # calls a piece of the launch route is timed over
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 HOLD_CYCLES = 10_000_000   # ~5 ms of spinning at the H100's ~2 GHz clock
 COLD_BYTES = 200_000_000   # 4x the H100's 50 MB L2 cache
 
-_lib = None
-
-
-def _kernel_lib():
-    global _lib
-    if _lib is None:
-        lib = cuda_build.load("dispatch_probe")
-        lib.sstpu_scale_blocks_f32.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
-        lib.sstpu_scale_gather_f32.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        for fn in (lib.sstpu_scale_blocks_f32, lib.sstpu_scale_gather_f32):
-            fn.restype = ctypes.c_int
-        lib.sstpu_probe_error_string.argtypes = [ctypes.c_int]
-        lib.sstpu_probe_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
 
 def _check_buf(buf: torch.Tensor, what: str) -> None:
-    if buf.dim() != 2 or buf.shape[1] != COLS or buf.shape[0] % ROWS:
+    shape = buf.shape
+    if len(shape) != 2 or shape[1] != COLS or shape[0] % ROWS:
         raise ValueError(f"{what}: buf must be (G * {ROWS}, {COLS}), got "
-                         f"{tuple(buf.shape)}")
+                         f"{tuple(shape)}")
     if buf.dtype != torch.float32:
         raise TypeError(f"{what}: buf must be float32, got {buf.dtype}")
     if not buf.is_contiguous():
         raise ValueError(f"{what}: buf must be contiguous")
-    if buf.shape[0] >= 2 ** 31:
+    if shape[0] >= 2 ** 31:
         raise ValueError(f"{what}: buf has too many rows for int offsets")
 
 
-def _launch(fn, name: str, *args) -> None:
-    lib = _kernel_lib()
-    err = fn(*args)
-    if err:
-        raise RuntimeError(f"{name}: kernel launch failed: "
-                           + lib.sstpu_probe_error_string(err).decode())
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _check_blocks(buf: torch.Tensor, G: int) -> None:
+    # one test on the launch path; the reason is found only on failure
+    if (buf.shape != (G * ROWS, COLS) or buf.dtype != torch.float32
+            or not buf.is_contiguous() or G * ROWS >= 2 ** 31):
+        _check_buf(buf, "scale_blocks")
+        raise ValueError(f"scale_blocks: buf has {buf.shape[0]} rows, not "
+                         f"G * {ROWS} = {G * ROWS}")
 
 
 # -- the two kernels ---------------------------------------------------------
 
 def scale_blocks_plain(buf: torch.Tensor, G: int) -> torch.Tensor:
     """Plain PyTorch ``scale_blocks``."""
-    _check_buf(buf, "scale_blocks")
-    if buf.shape[0] != G * ROWS:
-        raise ValueError(f"scale_blocks: buf has {buf.shape[0]} rows, not "
-                         f"G * {ROWS} = {G * ROWS}")
+    _check_blocks(buf, G)
     return buf * SCALE
 
 
-def scale_blocks(buf: torch.Tensor, G: int,
-                 split: int = SPLIT) -> torch.Tensor:
+def scale_blocks(buf: torch.Tensor, G: int) -> torch.Tensor:
     """out = buf * 1.0000001 over the (G * 512, 128) float32 buffer, one
     grid step per 512-row block.  A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel (``split`` thread blocks a step: 1, 2,
-    4, 8 or 16) or raises."""
-    if buf.device.type == "cpu":
+    CUDA tensor launches the kernel or raises."""
+    if not buf.is_cuda:
+        if buf.device.type != "cpu":
+            raise ValueError(f"scale_blocks: unsupported device {buf.device}")
         return scale_blocks_plain(buf, G)
-    if buf.device.type != "cuda":
-        raise ValueError(f"scale_blocks: unsupported device {buf.device}")
-    _check_buf(buf, "scale_blocks")
-    if buf.shape[0] != G * ROWS:
-        raise ValueError(f"scale_blocks: buf has {buf.shape[0]} rows, not "
-                         f"G * {ROWS} = {G * ROWS}")
+    _check_blocks(buf, G)
     out = torch.empty_like(buf)
-    if G == 0:
-        return out
-    lib = _kernel_lib()
-    with torch.cuda.device(buf.device):
-        _launch(lib.sstpu_scale_blocks_f32, "scale_blocks", buf.data_ptr(),
-                out.data_ptr(), G, split, _stream(buf))
-    scale_blocks.launches += 1
+    if G:
+        cuda_build.launch("sstpu_scale_blocks_f32", buf, buf.data_ptr(),
+                          out.data_ptr(), G)
+        scale_blocks.launches += 1
     return out
 
 
@@ -190,6 +165,15 @@ class GatherTable:
         return self._dev[key]
 
 
+def sparse_offsets(rng: np.random.Generator, G: int) -> np.ndarray:
+    """A table that leaves rows uncovered, for checks: max(1, G // 2)
+    windows at unaligned, non-overlapping offsets in a buffer of G
+    blocks, in random order (at G = 1 the one window covers it)."""
+    k = max(1, G // 2)
+    cuts = np.sort(rng.integers(0, (G - k) * ROWS + 1, size=k))
+    return rng.permutation(cuts + np.arange(k) * ROWS).astype(np.int32)
+
+
 def _table(offs, buf: torch.Tensor) -> GatherTable:
     _check_buf(buf, "scale_gather")
     if isinstance(offs, torch.Tensor) and offs.device.type != "cpu":
@@ -212,29 +196,24 @@ def scale_gather_plain(offs, buf: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def scale_gather(offs, buf: torch.Tensor,
-                 split: int = SPLIT) -> torch.Tensor:
+def scale_gather(offs, buf: torch.Tensor) -> torch.Tensor:
     """For each offset o of ``offs`` (a host array, or a GatherTable
     checked once): rows [o, o + 512) of out = the same rows of buf times
     1.0000001.  Rows that no offset names are left as ``torch.empty``
     gives them.  A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel or raises."""
-    if buf.device.type == "cpu":
+    if not buf.is_cuda:
+        if buf.device.type != "cpu":
+            raise ValueError(f"scale_gather: unsupported device {buf.device}")
         return scale_gather_plain(offs, buf)
-    if buf.device.type != "cuda":
-        raise ValueError(f"scale_gather: unsupported device {buf.device}")
     table = _table(offs, buf)
     out = torch.empty_like(buf)
     G = len(table)
-    if G == 0:
-        return out
-    lib = _kernel_lib()
-    d_offs = table.device_offsets(buf.device)
-    with torch.cuda.device(buf.device):
-        _launch(lib.sstpu_scale_gather_f32, "scale_gather", d_offs.data_ptr(),
-                buf.data_ptr(), out.data_ptr(), G, table.rows, split,
-                _stream(buf))
-    scale_gather.launches += 1
+    if G:
+        cuda_build.launch("sstpu_scale_gather_f32", buf,
+                          table.device_offsets(buf.device).data_ptr(),
+                          buf.data_ptr(), out.data_ptr(), G, table.rows)
+        scale_gather.launches += 1
     return out
 
 
@@ -272,8 +251,8 @@ def device_time(fn, arg_sets, reps: int = REPS, *,
     (CUDA events), cycling through ``arg_sets`` (tuples of arguments).  A
     spin kernel of ``hold_cycles`` holds the stream while the host
     enqueues the calls, so the events time the device's work back to
-    back, not the host's enqueue rate (a launch through ctypes costs the
-    host ~20 us, longer than a small kernel runs).  Raises RuntimeError if
+    back, not the host's enqueue rate (a launch costs the host longer
+    than a small kernel runs).  Raises RuntimeError if
     the host took longer to enqueue the calls than the spin ran: the
     events would then time the host again."""
     for args in arg_sets:
@@ -314,6 +293,44 @@ def bound_s(G: int, gathered: bool = False) -> float:
     return nbytes / PEAK_BYTES
 
 
+def host_per_call(fn, *args, calls: int = ROUTE_CALLS) -> float:
+    """s per call of ``fn(*args)`` on the host clock over ``calls`` calls,
+    after one warm call, between two device syncs."""
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls
+
+
+def _device_guard(buf: torch.Tensor) -> None:
+    with torch.cuda.device(buf.device):
+        pass
+
+
+def launch_route(buf: torch.Tensor) -> dict:
+    """Where the host time of a one-block ``scale_blocks`` goes: each piece
+    of its launch, timed alone, in s a call (see the module's doc)."""
+    dev = buf.get_device()
+    fn = cuda_build.bind("sstpu_scale_blocks_f32")[0]
+    out = torch.empty_like(buf)    # held: the direct launches write it
+    in_p, out_p = buf.data_ptr(), out.data_ptr()
+    stream = cuda_build.raw_stream(dev)
+    return dict(
+        checks_s=host_per_call(_check_blocks, buf, 1),
+        empty_like_s=host_per_call(torch.empty_like, buf),
+        raw_stream_s=host_per_call(cuda_build.raw_stream, dev),
+        ctypes_call_s=host_per_call(fn, in_p, out_p, 0, dev, stream),
+        c_launch_s=host_per_call(fn, in_p, out_p, 1, dev, stream),
+        scale_blocks_s=host_per_call(scale_blocks, buf, 1),
+        mul_s=host_per_call(torch.mul, buf, SCALE),
+        stream_object_s=host_per_call(
+            lambda: torch.cuda.current_stream(buf.device).cuda_stream),
+        device_guard_s=host_per_call(_device_guard, buf))
+
+
 def main(device=None, grids=GRID_G, reps: int = REPS) -> dict:
     """Run the probe on ``device`` (the card unless "cpu" is asked for;
     on the CPU the kernels' plain versions run and no device time is
@@ -352,20 +369,19 @@ def main(device=None, grids=GRID_G, reps: int = REPS) -> dict:
                 table = GatherTable(np.arange(G)[::-1] * ROWS, G * ROWS)
                 arg_sets = [(table, b) for b in bufs]
             t = run(fn, *arg_sets[0], reps=reps)
-            row = dict(host_s=t, bound_s=bound_s(G, key == "gathered"))
+            row = dict(host_s=t, bound_s=bound_s(G, key == "gathered"),
+                       mul_host_s=run(torch.mul, bufs[0], SCALE, reps=reps))
             if on_card:
                 row["device_s"] = device_time(fn, arg_sets, reps=reps)
-                row["device_s_split1"] = device_time(fn, arg_sets, split=1,
-                                                     reps=reps)
                 row["mul_s"] = device_time(torch.mul,
                                            [(b, SCALE) for b in bufs],
                                            reps=reps)
             res[key][G] = row
             mb = f" ({G * ROWS * COLS * 4 >> 20} MB)" if key == "kernel" else ""
             print(f"{key} G={G:4d}{mb}: {t * 1e6:9.1f} us "
-                  f"({t / G * 1e6:6.2f} us/block); device "
-                  f"{_fmt(row.get('device_s'), G)}, one block a step "
-                  f"{_fmt(row.get('device_s_split1'), G)}; torch.mul "
+                  f"({t / G * 1e6:6.2f} us/block), torch.mul "
+                  f"{row['mul_host_s'] * 1e6:.1f} us; device "
+                  f"{_fmt(row.get('device_s'), G)}; torch.mul "
                   f"{_fmt(row.get('mul_s'), G)}; bound "
                   f"{row['bound_s'] * 1e6:.1f} us", flush=True)
 
@@ -373,19 +389,40 @@ def main(device=None, grids=GRID_G, reps: int = REPS) -> dict:
     # the host's cost of a call (the device finishes each sooner), beside
     # an eager op's (chain1); the device times are warm, one block
     buf = torch.ones((ROWS, COLS), dtype=torch.float32, device=dev)
-    floor = dict(kernel_host_s=run(scale_blocks, buf, 1, split=1, reps=reps),
+    table = GatherTable([0], ROWS)
+    floor = dict(kernel_host_s=run(scale_blocks, buf, 1, reps=reps),
+                 gather_host_s=run(scale_gather, table, buf, reps=reps),
                  mul_host_s=run(torch.mul, buf, SCALE, reps=reps))
     if on_card:
         floor["kernel_device_s"] = device_time(scale_blocks, [(buf, 1)],
-                                               split=1, reps=reps)
+                                               reps=reps)
+        floor["gather_device_s"] = device_time(scale_gather, [(table, buf)],
+                                               reps=reps)
         floor["mul_device_s"] = device_time(torch.mul, [(buf, SCALE)],
                                             reps=reps)
     res["floor"] = floor
     print(f"launch floor G=   1: scale_blocks {floor['kernel_host_s'] * 1e6:.1f}"
           f" us a call (device {_fmt(floor.get('kernel_device_s'), 1)}); "
+          f"scale_gather {floor['gather_host_s'] * 1e6:.1f} us a call (device "
+          f"{_fmt(floor.get('gather_device_s'), 1)}); "
           f"torch.mul {floor['mul_host_s'] * 1e6:.1f} us a call (device "
           f"{_fmt(floor.get('mul_device_s'), 1)}); eager op "
           f"{res['chain'][CHAIN_K[0]] / CHAIN_K[0] * 1e6:.1f} us", flush=True)
+
+    if not on_card:
+        res["route"] = None
+        print("launch route (host us a call): not measured (cpu)", flush=True)
+        return res
+    route = res["route"] = launch_route(buf)
+    us = {k: f"{v * 1e6:.2f}" for k, v in route.items()}
+    print(f"launch route (host us a call, {ROUTE_CALLS} calls): checks "
+          f"{us['checks_s']}, torch.empty_like {us['empty_like_s']}, raw "
+          f"stream {us['raw_stream_s']}, ctypes call {us['ctypes_call_s']}"
+          f" (with the launch in C {us['c_launch_s']}); "
+          f"scale_blocks G=1 {us['scale_blocks_s']}; torch.mul "
+          f"{us['mul_s']}; not on the route: torch.cuda.Stream lookup "
+          f"{us['stream_object_s']}, torch.cuda.device guard "
+          f"{us['device_guard_s']}", flush=True)
     return res
 
 

@@ -6,6 +6,9 @@ two ``pallas_call``s are rebuilt here from the tool's body and run with
 ``interpret=True``.  The constant 1.0000001 rounds to the float32
 1 + 2**-23 in every framework, and each output is one float32 multiply, so
 every comparison is exact equality."""
+import ctypes
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +19,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from suitesparse_tpu_torch.tools import microbench_dispatch as probe
+from suitesparse_tpu_torch.utils import cuda_build
 
 ROWS, COLS = probe.ROWS, probe.COLS
 
@@ -93,19 +97,27 @@ def test_scale_blocks_matches_pallas_kernel(G):
 
 
 @pytest.mark.parametrize("G,order", [(1, "reversed"), (4, "reversed"),
-                                     (4, "random")])
+                                     (4, "random"), (5, "sparse")])
 def test_scale_gather_matches_pallas_vm_kernel(G, order):
+    """Bit for bit on the rows the offsets name (the others are left
+    unwritten by both)."""
     h = _buf(G, 10 + G)
+    rng = np.random.default_rng(7)
     if order == "reversed":
         offs = np.arange(G, dtype=np.int32)[::-1] * ROWS
+    elif order == "random":
+        offs = rng.permutation(G).astype(np.int32) * ROWS
     else:
-        offs = np.random.default_rng(7).permutation(G).astype(np.int32) * ROWS
-    want = np.asarray(_vm(jnp.asarray(offs), jnp.asarray(h), G))
+        offs = probe.sparse_offsets(rng, G)
+    want = np.asarray(_vm(jnp.asarray(offs), jnp.asarray(h), G=len(offs)))
+    table = probe.GatherTable(offs, G * ROWS)
+    named = table.row_index(torch.device("cpu")).numpy()
+    assert order != "sparse" or len(named) < G * ROWS
     got = probe.scale_gather(offs, torch.from_numpy(h))
-    plain = probe.scale_gather_plain(probe.GatherTable(offs, G * ROWS),
-                                     torch.from_numpy(h))
-    assert np.array_equal(got.numpy(), want)
-    assert np.array_equal(plain.numpy(), want)
+    plain = probe.scale_gather_plain(table, torch.from_numpy(h))
+    assert np.array_equal(got.numpy()[named], want[named])
+    assert np.array_equal(plain.numpy()[named], want[named])
+    assert np.array_equal(want[named], h[named] * np.float32(1.0000001))
 
 
 @pytest.mark.parametrize("offs,rows", [
@@ -171,9 +183,44 @@ def test_probe_main_runs_on_the_cpu(capsys):
                      "cholesky W= 64", "trsm     W= 64",
                      "kernel G=   1", "kernel G=   2",
                      "gathered G=   1", "gathered G=   2",
-                     "launch floor G=   1"]
-    assert "not measured (cpu)" in lines[-1]
+                     "launch floor G=   1", "launch route"]
+    # no device time and no launch route without a card
+    for ln in lines[7:]:
+        assert "not measured (cpu)" in ln
+    assert "scale_gather" in lines[-2] and "torch.mul" in lines[-2]
+    assert res["route"] is None
     assert set(res["kernel"]) == {1, 2} and "device_s" not in res["kernel"][1]
+    assert "mul_host_s" in res["kernel"][1]
     # the plain versions ran: no kernel was launched on the CPU
     assert probe.scale_blocks.launches == 0
     assert probe.scale_gather.launches == 0
+
+
+@pytest.mark.parametrize("entry", sorted(cuda_build.ENTRY_POINTS))
+def test_entry_point_signatures_match_the_sources(entry):
+    """Every entry point binds each pointer and the stream as c_void_p (an
+    int would cut a 64-bit address to 32 bits) and each int as c_int, and
+    the table agrees with the extern "C" declaration in its source: the
+    leading arguments, then the device index and the stream."""
+    lib, kinds = cuda_build.ENTRY_POINTS[entry]
+    types = cuda_build.argtypes(entry)
+    assert types == [ctypes.c_void_p if k == "p" else ctypes.c_int
+                     for k in kinds + "ip"]
+    src = (cuda_build.CSRC / f"{lib}.cu").read_text()
+    decl = re.search(rf"\bint\s+{entry}\s*\(([^)]*)\)", src)
+    params = [" ".join(p.split()) for p in decl.group(1).split(",")]
+    for p in params:
+        assert "*" in p or re.fullmatch(r"int \w+", p), p
+    assert "".join("p" if "*" in p else "i" for p in params) == kinds + "ip"
+    assert params[-2:] == ["int dev", "void* stream"]
+    assert 'include "launch.cuh"' in src     # sstpu_error_string
+
+
+def test_launch_refuses_a_cpu_tensor():
+    """The launch helper raises for a tensor off the card before it loads
+    (or builds) any library."""
+    buf = torch.ones((ROWS, COLS))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_build.launch("sstpu_scale_blocks_f32", buf, buf.data_ptr(),
+                          buf.data_ptr(), 1)
+    assert "sstpu_scale_blocks_f32" not in cuda_build._bound

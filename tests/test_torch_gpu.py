@@ -155,36 +155,43 @@ def test_bcsr_spmm_cuda_rejects_other_block_sizes():
 @pytest.mark.gpu
 def test_dispatch_probe_kernels_match_plain():
     """scale_blocks and scale_gather vs their plain versions on the card,
-    bit for bit (one float32 multiply by the same constant), G in {1, 64,
-    256}, one and four thread blocks a grid step, reversed and random
-    covering offsets."""
+    bit for bit (one float32 multiply by the same constant).  G in {1, 3,
+    64, 131, 256, 257}: chunk counts that are no multiple of the grid, and
+    grids smaller than the SM count.  Offsets reversed, random and sparse
+    (windows at unaligned offsets that leave rows uncovered: only the
+    named rows are compared)."""
     from suitesparse_tpu_torch.tools import microbench_dispatch as probe
     _need_card()
     rng = np.random.default_rng(6)
-    for G in (1, 64, 256):
+    for G in (1, 3, 64, 131, 256, 257):
         rows = G * probe.ROWS
         buf = torch.as_tensor(rng.standard_normal((rows, probe.COLS)),
                               dtype=torch.float32, device="cuda")
         P = probe.scale_blocks_plain(buf, G)
-        for split in (1, 4):
-            before = probe.scale_blocks.launches
-            K = probe.scale_blocks(buf, G, split=split)
-            assert probe.scale_blocks.launches == before + 1
+        before = probe.scale_blocks.launches
+        K = probe.scale_blocks(buf, G)
+        assert probe.scale_blocks.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(K, P)
+        for offs in (np.arange(G)[::-1] * probe.ROWS,
+                     rng.permutation(G) * probe.ROWS,
+                     probe.sparse_offsets(rng, G)):
+            table = probe.GatherTable(offs, rows)
+            named = table.row_index(buf.device)
+            before = probe.scale_gather.launches
+            Kg = probe.scale_gather(table, buf)
+            assert probe.scale_gather.launches == before + 1
             torch.cuda.synchronize()
-            assert torch.equal(K, P)
-        for perm in (np.arange(G)[::-1], rng.permutation(G)):
-            table = probe.GatherTable(perm * probe.ROWS, rows)
-            for split in (1, 4):
-                before = probe.scale_gather.launches
-                Kg = probe.scale_gather(table, buf, split=split)
-                assert probe.scale_gather.launches == before + 1
-                torch.cuda.synchronize()
-                assert torch.equal(Kg, probe.scale_gather_plain(table, buf))
-                assert torch.equal(Kg, P)
+            Pg = probe.scale_gather_plain(table, buf)
+            assert torch.equal(Kg[named], Pg[named])
+            assert torch.equal(Kg[named], P[named])
 
 
 @pytest.mark.gpu
 def test_dispatch_probe_kernels_refuse_bad_launches():
+    """Offsets on the card or overlapping are refused on the host; a buffer
+    that is not 16-byte aligned passes the wrapper's checks and is refused
+    by the kernel's launch, which raises with the library's error."""
     from suitesparse_tpu_torch.tools import microbench_dispatch as probe
     _need_card()
     buf = torch.zeros((2 * probe.ROWS, probe.COLS), device="cuda")
@@ -193,8 +200,10 @@ def test_dispatch_probe_kernels_refuse_bad_launches():
                            buf)
     with pytest.raises(ValueError):
         probe.scale_gather(np.array([0, probe.ROWS - 8]), buf)
+    flat = torch.zeros(2 * probe.ROWS * probe.COLS + 1, device="cuda")
+    skewed = flat[1:].view(2 * probe.ROWS, probe.COLS)
     with pytest.raises(RuntimeError, match="launch"):
-        probe.scale_blocks(buf, 2, split=3)
+        probe.scale_blocks(skewed, 2)
 
 
 @pytest.mark.gpu
