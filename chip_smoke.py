@@ -23,9 +23,10 @@ Any failed check raises and the script exits nonzero; nothing is caught
 and carried on.  Without a CUDA device, or without the package beside
 it, it exits nonzero and prints no result.
 
-It also profiles one refactorization of each matrix with torch.profiler:
-the Chrome trace goes to ``build/profiles/profile_<matrix>.json`` (~30 MB
-each, gitignored), and a ``[profile]`` line gives
+It also profiles one refactorization of each matrix with torch.profiler,
+by default and with ``Common.cholesky.trsm_inv = False``: the Chrome
+traces go to ``build/profiles/profile_<matrix>[_trsm_inv_false].json``
+(~30 MB each, gitignored), and a ``[profile]`` line for each gives
 the device busy time (union of the kernel intervals), the idle share
 against the median of the unprofiled refactorizations, and the device
 time per kernel group and for the top kernels.
@@ -54,9 +55,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 MATRICES = ("lap3d_44", "fem3d_80000")
 PROFILE_DIR = os.path.join(ROOT, "build", "profiles")
 RESIDUAL_MAX = 1e-11          # after 3 float64 refinement steps
-# f32 peak outside the tensor cores and HBM rate of one H100 SXM (NVIDIA
-# data sheet, 700 W); the batched Cholesky runs on the CUDA cores
+# f32 peak outside the tensor cores, dense TF32 tensor-core peak and HBM
+# rate of one H100 SXM (NVIDIA data sheet, 700 W); the batched Cholesky
+# runs on the CUDA cores, the BCSR product on the tensor cores (3xTF32)
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 # the port's CUDA sources, csrc/<name>.cu
 KERNELS = ("block_chol", "bcsr_spmm", "dispatch_probe")
@@ -73,7 +76,6 @@ FRONT_MATRIX = "lap3d_44"
 REFINE_STEPS = 3
 REFACTOR_REPS = 5
 OPS_MATRIX = "lap3d_44"
-BCSR_K = (32, 128)            # right-hand-side widths of the BCSR product
 GRAPH_N = 1_000_000
 # kernel-name fragments of each device-time group in a profile
 GROUPS = (("block_chol", ("block_chol",)),
@@ -457,7 +459,45 @@ def run_matrix(name: str, reps: int):
         x = x + solve_super(f, b - Sf @ x, "A", cm).astype(np.float64)
     res = residual_norm(A, x, b)
     check(res <= RESIDUAL_MAX, f"{name}: residual {res:.3e} > {RESIDUAL_MAX}")
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated()   # one factor and its solves
+
+    # the backward-stable TRSM (Common.cholesky.trsm_inv = False): every
+    # factor wave through torch.linalg's Cholesky and triangular solve, so
+    # block_chol never runs
+    cmt = default_common()
+    cmt.cholesky.supernodal = "supernodal"
+    cmt.cholesky.program = "pf"
+    cmt.cholesky.trsm_inv = False
+    l0 = block_chol.launches
+    ft = factorize_super(A, sym, ss, plan=plan, common=cmt, device="cuda")
+    check(ft.ok, f"{name}: trsm_inv=False factor minor {ft.minor}")
+    t_tri = []
+    for _ in range(reps):
+        t, Lt = host_time(lambda: pf_numeric(vd, pfp, np.float32,
+                                             device="cuda", trsm_inv=False))
+        t_tri.append(t)
+    check(torch.equal(Lt, ft.Lx),
+          f"{name}: trsm_inv=False refactorizations are not bit-identical")
+    check(block_chol.launches == l0, f"{name}: trsm_inv=False launched "
+          f"block_chol")
+    del Lt
+    t_tri_med = float(np.median(t_tri))
+    prof_tri = profile_refactor(
+        f"{name}_trsm_inv_false",
+        lambda: pf_numeric(vd, pfp, np.float32, device="cuda",
+                           trsm_inv=False), t_tri_med * 1e3, PROFILE_DIR)
+    log("[profile] " + json.dumps(prof_tri))
+    tot = plan.total
+    d_tri = rel_err(ft.Lx[:tot], f.Lx[:tot])
+    # two float32 factors of one matrix by two TRSMs
+    check(d_tri <= 1e-3, f"{name}: trsm_inv=False vs default {d_tri:.3e}")
+    xt = solve_super(ft, b, "A", cmt).astype(np.float64)
+    for _ in range(3):
+        xt = xt + solve_super(ft, b - Sf @ xt, "A", cmt).astype(np.float64)
+    res_tri = residual_norm(A, xt, b)
+    check(res_tri <= RESIDUAL_MAX,
+          f"{name}: trsm_inv=False residual {res_tri:.3e} > {RESIDUAL_MAX}")
+    del ft
     row = dict(matrix=name, n=n, lnz=int(sym.lnz), flops=float(sym.flops),
                instr=int(len(pfp.instr_cls)), analyze_s=t_an,
                first_factor_s=t_first, refactor_ms=t_refactor * 1e3,
@@ -468,6 +508,12 @@ def run_matrix(name: str, reps: int):
                solve32_gflops=32 * 4 * sym.lnz / (ms32 * 1e-3) / 1e9,
                residual_f32=res0, residual_refined=res,
                bit_identical_refactor=bool(identical),
+               trsm_inv_false_refactor_ms=t_tri_med * 1e3,
+               trsm_inv_false_refactor_ms_all=[t * 1e3 for t in t_tri],
+               trsm_inv_false_device_busy_ms=prof_tri["device_busy_ms"],
+               trsm_inv_false_idle_share=prof_tri["idle_share"],
+               trsm_inv_false_rel_diff=d_tri,
+               trsm_inv_false_residual_refined=res_tri,
                peak_mem_gib=peak / 2**30,
                block_chol_launches_per_factor=per_factor)
     log(f"[{name}] " + json.dumps(row))
@@ -481,16 +527,13 @@ def kernel_line(shapes, launches, dev_kind):
     yardstick ``torch.linalg.cholesky_ex`` on the precomputed S + diag(pe).
     The yardstick waits on the host at W >= 2, so it cannot be queued: it
     is timed by its device busy time (``busy_ms``, gaps left out) at every
-    shape, and so is the kernel, beside its queued time.  The former
-    yardstick, ``torch.linalg.cholesky(S + torch.diag_embed(pe))`` by
-    back-to-back CUDA events, which syncs with the host on every call, is
-    logged beside them so that earlier tables connect."""
+    shape, and so is the kernel, beside its queued time."""
     import torch
     from suitesparse_tpu_torch.cholesky.kernels import (block_chol,
                                                         block_chol_plain)
     rng = np.random.default_rng(2)
     keys = ("ms", "busy_ms", "plain_ms", "bound_ms", "library_ms",
-            "old_library_ms", "bytes_ms", "ops_ms")
+            "bytes_ms", "ops_ms")
     tot = dict.fromkeys(keys, 0.0)
     max_abs = 0.0
     w1 = None
@@ -508,8 +551,6 @@ def kernel_line(shapes, launches, dev_kind):
         ms = kernel_ms(lambda: block_chol(S, pe))
         busy = busy_ms(lambda: block_chol(S, pe))
         lib = busy_ms(lambda: torch.linalg.cholesky_ex(A))
-        old = event_ms(lambda: torch.linalg.cholesky(
-            S + torch.diag_embed(pe)), 20)
         plain = event_ms(lambda: block_chol_plain(S, pe), 3)
         t_bytes = (2 * W * Np * Np + W * Np) * 4 / PEAK_BYTES * 1e3
         t_ops = W * Np ** 3 / 3 / PEAK_F32_FLOPS * 1e3
@@ -518,9 +559,7 @@ def kernel_line(shapes, launches, dev_kind):
             f"{ms * 1e3:.2f} us queued, {busy * 1e3:.2f} us busy (plain "
             f"{plain * 1e3:.1f} us, bound {bound * 1e3:.3f} us by "
             f"{'bytes' if t_bytes >= t_ops else 'operations'}, "
-            f"torch.linalg.cholesky_ex {lib * 1e3:.2f} us busy; former "
-            f"yardstick torch.linalg.cholesky(S + "
-            f"diag_embed(pe)) {old * 1e3:.1f} us by back-to-back events) on "
+            f"torch.linalg.cholesky_ex {lib * 1e3:.2f} us busy) on "
             f"{dev_kind}")
         if (W, Np) == (1, 128):
             w1 = dict(ms=ms, busy_ms=busy, library_ms=lib)
@@ -528,13 +567,11 @@ def kernel_line(shapes, launches, dev_kind):
                 f"Np=128): {ms * 1e3:.2f} us queued, {busy * 1e3:.2f} us "
                 f"busy on the device's clock; torch.linalg.cholesky_ex "
                 f"{lib * 1e3:.2f} us busy")
-        for k, v in zip(keys, (ms, busy, plain, bound, lib, old, t_bytes,
-                               t_ops)):
+        for k, v in zip(keys, (ms, busy, plain, bound, lib, t_bytes, t_ops)):
             tot[k] += cnt * v
     log(f"[kernel] block_chol per lap3d_44 factor: {tot['ms']:.4f} ms "
         f"queued, {tot['busy_ms']:.4f} ms busy (torch.linalg.cholesky_ex "
-        f"{tot['library_ms']:.4f} ms busy, former yardstick "
-        f"{tot['old_library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms) "
+        f"{tot['library_ms']:.4f} ms busy, bound {tot['bound_ms']:.4f} ms) "
         f"on {dev_kind}")
     return dict(name="block_chol", route="cuda",
                 source="suitesparse_tpu_torch/csrc/block_chol.cu",
@@ -546,7 +583,6 @@ def kernel_line(shapes, launches, dev_kind):
                           else "operations"),
                 library_ms=tot["library_ms"],
                 busy_ms=tot["busy_ms"],
-                old_library_ms=tot["old_library_ms"],
                 ms_w1_np128=w1 and w1["ms"],
                 busy_ms_w1_np128=w1 and w1["busy_ms"],
                 library_ms_w1_np128=w1 and w1["library_ms"],
@@ -555,10 +591,7 @@ def kernel_line(shapes, launches, dev_kind):
                          f"spin kernel (gaps between launches included); "
                          f"busy_ms and library_ms (torch.linalg.cholesky_ex "
                          f"on the precomputed S + diag(pe)) as device busy "
-                         f"time under torch.profiler (gaps left out); "
-                         f"old_library_ms the former "
-                         f"torch.linalg.cholesky(S + diag_embed(pe)) by "
-                         f"back-to-back events")
+                         f"time under torch.profiler (gaps left out)")
 
 
 # -- the sparse-product slice ----------------------------------------------
@@ -587,16 +620,23 @@ def bcsr_vs_plain(bc, X):
 
 def phase_bcsr_vs_plain():
     """bcsr_spmm kernel vs its plain version on seeded random BCSR: one
-    block, m and n not multiples of 128, k in {1, 50, 130}, rows with pad
+    block, m and n not multiples of 128, k in {1, 7, 32, 50, 64, 128, 130,
+    256} (every column tile, 16-byte and 4-byte X copies), rows with pad
     slots.  Tolerance 1e-5 relative in float32: both sum up to
-    128 * nslots products in float32, in another order."""
+    128 * nslots products in float32, in another order, the kernel each
+    as three TF32 products (3xTF32, at most 3 * 2^-20 a product).  Then
+    Inf and NaN in A, in X and in X's block 0 (pad slots): the kernel's
+    isnan/isinf pattern and the signs of its infinities must be the plain
+    version's."""
     import torch
+    from suitesparse_tpu_torch.tools.bench_bcsr import inf_nan_case
     rng = np.random.default_rng(5)
     worst = 0.0
     for m, n, d, k in ((90, 100, 0.3, 1), (128, 128, 0.2, 50),
                        (1000, 700, 0.01, 1), (1000, 700, 0.01, 50),
                        (1000, 700, 0.01, 130), (700, 1100, 0.0001, 7),
-                       (3000, 2500, 0.002, 64)):
+                       (3000, 2500, 0.002, 64), (1000, 700, 0.01, 32),
+                       (600, 900, 0.02, 128), (500, 400, 0.03, 256)):
         S, bc = random_bcsr(rng, m, n, d)
         X = torch.as_tensor(rng.standard_normal((n, k)),
                             dtype=torch.float32, device="cuda")
@@ -606,14 +646,31 @@ def phase_bcsr_vs_plain():
               f"bcsr_spmm shape/finiteness at m={m} n={n} k={k}")
         check(err <= 1e-5, f"bcsr_spmm vs plain m={m} n={n} k={k}: {err:.2e}")
         ref = S @ X.double().cpu().numpy()
-        check(rel_err_np(K.double().cpu().numpy(), ref) <= 1e-5,
-              f"bcsr_spmm vs scipy m={m} n={n} k={k}")
+        e_ref = rel_err_np(K.double().cpu().numpy(), ref)
+        check(e_ref <= 1e-5,
+              f"bcsr_spmm vs scipy m={m} n={n} k={k}: {e_ref:.2e}")
         worst = max(worst, err)
         log(f"[kernel] bcsr_spmm m={m} n={n} k={k}: nrb={bc.nrb} "
             f"nslots={bc.nslots} pad slots={int((bc.nslots - nz).sum())} "
-            f"vs plain {err:.3e}")
+            f"vs plain {err:.3e}, vs scipy float64 {e_ref:.3e}")
     log(f"[kernel] bcsr_spmm vs plain, random cases: max relative error "
         f"{worst:.3e} (tol 1e-5)")
+    bc, Xh = inf_nan_case(np.random.default_rng(11))
+    K, P, _ = bcsr_vs_plain(bc, torch.as_tensor(Xh, device="cuda"))
+    fin = torch.isfinite(P)
+    check(bool(torch.isnan(P).any()) and bool(torch.isinf(P).any()),
+          "the Inf/NaN case has no Inf or NaN in the plain result")
+    check(torch.equal(torch.isnan(K), torch.isnan(P))
+          and torch.equal(torch.isinf(K), torch.isinf(P))
+          and torch.equal(torch.sign(K[torch.isinf(K)]),
+                          torch.sign(P[torch.isinf(P)])),
+          "bcsr_spmm's Inf/NaN pattern differs from plain's")
+    e_fin = rel_err(K[fin], P[fin])
+    check(e_fin <= 1e-5, f"bcsr_spmm's finite entries vs plain {e_fin:.2e}")
+    log(f"[kernel] bcsr_spmm with Inf/NaN in A, X and X's block 0: "
+        f"{int(torch.isnan(P).sum())} NaN and {int(torch.isinf(P).sum())} "
+        f"Inf entries, the plain version's pattern and signs; finite "
+        f"entries {e_fin:.3e} from plain")
 
 
 def ops_matrix():
@@ -633,6 +690,7 @@ def run_ops(A, S):
     from suitesparse_tpu_torch.models import sfmult, ssmult
     from suitesparse_tpu_torch.ops import (bcsr_spmm, spgemm, spmm_program,
                                            to_bcsr)
+    from suitesparse_tpu_torch.tools.bench_bcsr import K_WIDTHS
     n = A.ncol
     t_bcsr, bc = host_time(lambda: to_bcsr(A))
     check(bc.nrb * bc.nslots == 666 * 7,
@@ -645,7 +703,7 @@ def run_ops(A, S):
     row = dict(matrix=OPS_MATRIX, n=n, nnz=A.nnz, to_bcsr_s=t_bcsr,
                nrb=bc.nrb, nslots=bc.nslots, nonzero_blocks=real)
     Xs = {}
-    for k in BCSR_K:
+    for k in K_WIDTHS:
         Xh = rng.standard_normal((n, k)).astype(np.float32)
         X = torch.as_tensor(Xh, device="cuda")
         Xs[k] = X
@@ -807,12 +865,21 @@ def run_graph():
     return row
 
 
-def bcsr_kernel_line(bc, Xs, launches, dev_kind):
-    """Time bcsr_spmm on lap3d_44's block table at each k, beside its plain
-    version, its bound and torch's BSR product (cuSPARSE, a yardstick the
-    port never calls)."""
+def bcsr_kernel_line(bc, Xs, S, launches, dev_kind):
+    """Check and time bcsr_spmm on lap3d_44's block table at each k with
+    the BCSR bench's ``measure`` (the code that times two source trees
+    against each other), beside its plain version, its bound and torch's
+    BSR product (cuSPARSE, a yardstick the port never calls).  The bound
+    is that of the design in use: the kernel runs each product as three
+    TF32 products on the tensor cores, so it is the larger of the bytes
+    over the HBM rate and 3 x flops over the dense TF32 peak; the
+    CUDA-core bound of float32 FMAs (flops over 67 TFLOP/s, which the
+    parent design could not beat) is kept beside it as
+    ``bound_f32_cuda_core_ms``."""
     import torch
-    from suitesparse_tpu_torch.ops.spmv import bcsr_spmm, bcsr_spmm_plain
+    from suitesparse_tpu_torch.ops.spmv import bcsr_spmm_plain
+    from suitesparse_tpu_torch.tools.bench_bcsr import (K_WIDTHS, REPS,
+                                                        measure)
     blocks, cols = bc.device_arrays(torch.device("cuda"))
     m, n = bc.shape
     ncb = -(-n // bc.bk)
@@ -825,20 +892,19 @@ def bcsr_kernel_line(bc, Xs, launches, dev_kind):
                                 size=(bc.nrb * bc.bm, ncb * bc.bk))
     nslot = bc.nrb * bc.nslots
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-               bytes_ms=0.0, ops_ms=0.0)
+               bytes_ms=0.0, ops_ms=0.0, f32_ms=0.0)
     extra = {}
     max_abs = 0.0
-    for k in BCSR_K:
+    for k in K_WIDTHS:
         X = Xs[k]
-        K, P, err = bcsr_vs_plain(bc, X)
-        check(err <= 1e-5, f"bcsr_spmm vs plain on {OPS_MATRIX}'s block "
-              f"table, k={k}: {err:.2e}")
-        max_abs = max(max_abs, float((K - P).abs().max()))
+        r = measure(bc, X, S)
+        ms, err = r["ms"], r["rel_err_plain"]
+        max_abs = max(max_abs, r["max_abs_err"])
+        P = bcsr_spmm_plain(blocks, cols, X, bc.nslots, bc.shape)
         Xp = torch.zeros((ncb * bc.bk, k), device="cuda")
         Xp[:n] = X
         Z = (B @ Xp)[:m]
         check(rel_err(Z, P) <= 1e-5, f"BSR library product k={k}")
-        ms = event_ms(lambda: bcsr_spmm(bc, X), 50)
         plain = event_ms(lambda: bcsr_spmm_plain(blocks, cols, X, bc.nslots,
                                                  bc.shape), 20)
         lib = event_ms(lambda: B @ Xp, 20)
@@ -849,20 +915,25 @@ def bcsr_kernel_line(bc, Xs, launches, dev_kind):
         nbytes = blocks.numel() * 4 + cols.numel() * 4 + X.numel() * 4 \
             + m * k * 4
         t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+        t_f32 = max(t_bytes, flops / PEAK_F32_FLOPS * 1e3)
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
         log(f"[kernel] bcsr_spmm {OPS_MATRIX} k={k}: {ms:.4f} ms "
-            f"({flops / ms / 1e9:.2f} TFLOP/s; plain {plain:.4f} ms, bound "
-            f"{bound:.4f} ms by {by}, torch BSR @ dense {lib:.4f} ms) "
-            f"vs plain {err:.3e} on {dev_kind}")
+            f"({flops / ms / 1e9:.2f} TFLOP/s of the product; plain "
+            f"{plain:.4f} ms, bound {bound:.4f} ms by {by} (3xTF32 on the "
+            f"tensor cores; float32 CUDA cores {t_f32:.4f} ms), torch BSR @ "
+            f"dense {lib:.4f} ms) vs plain {err:.3e}, vs scipy float64 "
+            f"{r['rel_err_scipy']:.3e} on {dev_kind}")
         for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
                        ("library_ms", lib), ("bytes_ms", t_bytes),
-                       ("ops_ms", t_ops)):
+                       ("ops_ms", t_ops), ("f32_ms", t_f32)):
             tot[key] += v
         extra.update({f"ms_k{k}": ms, f"plain_ms_k{k}": plain,
                       f"bound_ms_k{k}": bound, f"bound_by_k{k}": by,
-                      f"library_ms_k{k}": lib})
+                      f"bound_f32_cuda_core_ms_k{k}": t_f32,
+                      f"library_ms_k{k}": lib, f"rel_err_plain_k{k}": err,
+                      f"rel_err_scipy_k{k}": r["rel_err_scipy"]})
     return dict(name="bcsr_spmm", route="cuda",
                 source="suitesparse_tpu_torch/csrc/bcsr_spmm.cu",
                 replaces="suitesparse_tpu/ops/spmv.py:154",
@@ -872,8 +943,15 @@ def bcsr_kernel_line(bc, Xs, launches, dev_kind):
                 bound_by=("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
                           else "operations"),
                 library_ms=tot["library_ms"],
-                timed_as=f"one call at each k in {list(BCSR_K)} on "
-                         f"{OPS_MATRIX}'s block table, summed",
+                bound_f32_cuda_core_ms=tot["f32_ms"],
+                bound_as="max(bytes / 3.35 TB/s, 3 x flops / 495 TFLOP/s "
+                         "TF32): three TF32 products a product (3xTF32); "
+                         "bound_f32_cuda_core_ms: flops / 67 TFLOP/s "
+                         "float32",
+                timed_as=f"one call at each k in {list(K_WIDTHS)} on "
+                         f"{OPS_MATRIX}'s block table, summed (the BCSR "
+                         f"bench's measure: CUDA events over {REPS} "
+                         f"launches)",
                 **extra)
 
 
@@ -1068,6 +1146,26 @@ def run_front():
     log(f"[front] cholesky() {t_an:.2f} s; refactorize x2 {t_r1:.3f} / "
         f"{t_r2:.3f} s, bit-identical; residuals raw and refined {res_pf}")
 
+    tsolver = CholeskySolver(sym=solver.sym, common=common(trsm_inv=False),
+                             ss=solver.ss, plan=solver.plan, device="cuda")
+    t_t1, _ = host_time(lambda: tsolver.refactorize(A))
+    Lt1 = tsolver.factor.Lx
+    t_t2, _ = host_time(lambda: tsolver.refactorize(A))
+    check(tsolver.factor.ok and torch.equal(Lt1, tsolver.factor.Lx),
+          "trsm_inv=False refactorizations are not bit-identical")
+    del Lt1
+    d_tri = rel_err(tsolver.factor.Lx[:tot], Lpf)
+    check(d_tri <= 1e-3, f"trsm_inv=False vs default factor {d_tri:.3e}")
+    res_tri = refined(tsolver.solve)
+    check(res_tri[-1] <= RESIDUAL_MAX,
+          f"trsm_inv=False residual {res_tri[-1]:.3e}")
+    log(f"[front] trsm_inv=False (torch.linalg Cholesky + triangular "
+        f"solve in every factor wave): refactorize x2 {t_t1:.3f} / "
+        f"{t_t2:.3f} s (default {t_r1:.3f} / {t_r2:.3f} s), bit-identical; "
+        f"relative difference to the default factor {d_tri:.3e}; "
+        f"residuals raw and refined {res_tri}")
+    del tsolver
+
     t_wp, wp = host_time(lambda: solver.plan.wave_plan())
     wsolver = CholeskySolver(sym=solver.sym, common=common(program="wave"),
                              ss=solver.ss, plan=solver.plan, device="cuda")
@@ -1112,6 +1210,9 @@ def run_front():
     return dict(matrix=FRONT_MATRIX, n=n, spsolve_chol_s=t_sp,
                 spsolve_chol_residual=res_sp, cholesky_s=t_an,
                 refactorize_s=[t_r1, t_r2], pf_residuals=res_pf,
+                trsm_inv_false_refactorize_s=[t_t1, t_t2],
+                trsm_inv_false_vs_default_rel=d_tri,
+                trsm_inv_false_residuals=res_tri,
                 wave_plan_s=t_wp, wave_first_factor_s=t_w1,
                 wave_refactor_ms=float(np.median(t_wave)) * 1e3,
                 wave_refactor_ms_all=[t * 1e3 for t in t_wave],
@@ -1175,7 +1276,7 @@ def main() -> int:
         f"(block_chol {block_chol.launches})")
     log(f"[ops] {json.dumps(ops_row)}")
     log(f"[graph] {json.dumps(graph_row)}")
-    bline = bcsr_kernel_line(bc, Xs, slice_launches, kind)
+    bline = bcsr_kernel_line(bc, Xs, S, slice_launches, kind)
     del A, S, bc, Xs
     log(f"[time] sparse-product phases done at "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -710,12 +710,13 @@ def _tri_inv_pow2(C: torch.Tensor, base: int = 2) -> torch.Tensor:
     return inv
 
 
-def _factor_step(Np, Mb, W, mode, L, K, bf16=False):
+def _factor_step(Np, Mb, W, mode, L, K, bf16=False, trsm_inv=True):
     """One factor wave: POTRF + TRSM (panel_factor, whose diagonal blocks
-    go through the block_chol kernel), SYRK (from bfloat16 inputs when
-    ``bf16``) plus the lower-canonical incoming update, the panel write,
-    and either the published full update (mode 1) or the 1-hop
-    sorted-segment scatter (mode 2)."""
+    go through the block_chol kernel; with ``trsm_inv`` False, or above
+    _POTRF_MAXNP, torch.linalg's Cholesky and triangular solve), SYRK
+    (from bfloat16 inputs when ``bf16``) plus the lower-canonical incoming
+    update, the panel write, and either the published full update (mode
+    1) or the 1-hop sorted-segment scatter (mode 2)."""
     Mp = Np + Mb
 
     def step(Fx, pos, ops):
@@ -723,7 +724,7 @@ def _factor_step(Np, Mb, W, mode, L, K, bf16=False):
         rm = ops["rowmask"][pos]
         cmk = ops["colmask"][pos]
         P = _panels(Fx, ops["base"][pos], W, Mp, Np)
-        if Np <= _POTRF_MAXNP:
+        if trsm_inv and Np <= _POTRF_MAXNP:
             newP = panel_factor(P, pe, rm, cmk)         # masked output
         else:
             # the upper triangle of the diagonal block may hold junk
@@ -844,21 +845,27 @@ def _pair_step(Mbc, G, Pq, Npt, Mbt, pc, uc, spanq, bf16=False):
     return step
 
 
-def _pf_steps(class_ops, meta, syrk_bf16=False):
+def _pf_steps(class_ops, meta, syrk_bf16=False, trsm_inv=True):
     fops, pops, qops = class_ops
     fmeta, pmeta, qmeta = meta
-    steps = [(_factor_step(*m, syrk_bf16), o) for o, m in zip(fops, fmeta)]
+    steps = [(_factor_step(*m, syrk_bf16, trsm_inv), o)
+             for o, m in zip(fops, fmeta)]
     steps += [(_proj_step(*m), o) for o, m in zip(pops, pmeta)]
     steps += [(_pair_step(*m, syrk_bf16), o) for o, m in zip(qops, qmeta)]
     return steps
 
 
-def pf_numeric(vals, pfp: PFPlan, dtype, syrk_bf16=False, device=None):
+def pf_numeric(vals, pfp: PFPlan, dtype, syrk_bf16=False, device=None,
+               trsm_inv=True):
     """The full numeric factorization with pass-forward extend-add:
     A-assembly into a zero buffer, then the instruction stream in order.
     Returns the flat (pfp.buf,) buffer on ``device`` (the card unless
     "cpu" is asked for).  syrk_bf16: the SYRK updates and the pair
-    placements from bfloat16 inputs, summed in ``dtype``."""
+    placements from bfloat16 inputs, summed in ``dtype``.  trsm_inv
+    (Common.cholesky.trsm_inv): False factors every panel class by
+    torch.linalg's Cholesky and triangular solve instead of panel_factor
+    (block_chol and the explicit inverse): the reference's XLA path with
+    SSTPU_TRSM_INV=0."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype)
     ops = pfp.arrays(dt, dev)
@@ -870,7 +877,7 @@ def pf_numeric(vals, pfp: PFPlan, dtype, syrk_bf16=False, device=None):
         pfp._cache[key] = amaps
     vals = torch.as_tensor(vals, dtype=dt, device=dev)
     Fx = assemble(vals, amaps[0], amaps[1], pfp.buf)
-    steps = _pf_steps(ops, pfp.meta, syrk_bf16)
+    steps = _pf_steps(ops, pfp.meta, syrk_bf16, trsm_inv)
     for cid, pos in zip(pfp.instr_cls.tolist(), pfp.instr_pos.tolist()):
         step, cops = steps[cid]
         step(Fx, pos, cops)

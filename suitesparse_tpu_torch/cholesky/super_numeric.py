@@ -523,7 +523,8 @@ def factorize_super(A: SparseCSC, sym: Symbolic, ss: SuperSymbolic,
     vals = torch.as_tensor(_assemble_values(A, sym, ss, dtype), device=dev)
     if prog == "pf":
         from .pf import pf_numeric
-        Lx = pf_numeric(vals, plan.pf_plan(cm), dtype, bf16, device=dev)
+        Lx = pf_numeric(vals, plan.pf_plan(cm), dtype, bf16, device=dev,
+                        trsm_inv=cm.cholesky.trsm_inv)
     elif prog == "wave":
         from .wave import wave_numeric
         Lx = wave_numeric(vals, plan.wave_plan(), dtype, bf16, device=dev)

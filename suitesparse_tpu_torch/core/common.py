@@ -53,6 +53,16 @@ class CholeskyOptions:
     # MXU).  Opt-in: pairs with iterative refinement for accuracy (no
     # reference analog; TPU mixed-precision knob).
     syrk_bf16: bool = False
+    # TRSM of the pass-forward factor through the explicit inverse of each
+    # diagonal block (panel_factor, whose POTRF is the block_chol kernel).
+    # False takes torch.linalg's Cholesky and the backward-stable
+    # triangular solve for every panel class, so on the card it takes
+    # block_chol off the factor: the reference's XLA path with its inverse
+    # off (SSTPU_POTRF=xla with SSTPU_TRSM_INV=0; on the reference's
+    # Pallas path SSTPU_TRSM_INV alone changes nothing), the accuracy
+    # escape hatch of ACCURACY.md:81-98.  A field here, since the port
+    # reads no environment switches.
+    trsm_inv: bool = True
     # Numeric/solve program form: "unrolled" traces one op chain per
     # (level, bucket) — fastest at runtime for small patterns but compile
     # time is O(#buckets); "wave" compiles a lax.scan over a static

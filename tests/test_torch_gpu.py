@@ -114,19 +114,32 @@ def test_factor_on_card_matches_cpu():
 @pytest.mark.gpu
 def test_bcsr_spmm_cuda_kernel_matches_plain():
     """The BCSR kernel vs its plain version on the card, float32, 1e-5
-    relative: both sum up to 128 * nslots products in another order.
-    Cases: one block, m and n not multiples of 128, k in {1, 50, 130},
-    rows with pad slots."""
+    relative, and vs scipy in float64: both sum up to 128 * nslots
+    products in another order, the kernel's as three TF32 products each
+    (~2^-20).  Cases: one block, m and n not multiples of 128, rows with
+    pad slots, k in {1, 7, 32, 50, 64, 128, 130, 256} (every column tile,
+    16-byte X copies where k % 4 == 0, 4-byte ones otherwise), and an X
+    that is not 16-byte aligned at k = 32 (the 4-byte path)."""
     import scipy.sparse as sp
     from suitesparse_tpu_torch.core.sparse import SparseCSC
     _need_card()
     rng = np.random.default_rng(4)
-    for m, n, d, k in ((90, 100, 0.3, 1), (1000, 700, 0.01, 50),
-                       (1000, 700, 0.01, 130), (700, 1100, 0.0001, 7)):
+    for m, n, d, k, aligned in (
+            (90, 100, 0.3, 1, True), (1000, 700, 0.01, 50, True),
+            (1000, 700, 0.01, 130, True), (700, 1100, 0.0001, 7, True),
+            (1000, 700, 0.01, 32, True), (3000, 2500, 0.002, 64, True),
+            (600, 900, 0.02, 128, True), (500, 400, 0.03, 256, True),
+            (1000, 700, 0.01, 32, False)):
         S = sp.random(m, n, d, random_state=rng, format="csc")
         bc = spmv.to_bcsr(SparseCSC.from_scipy(S))
-        X = torch.as_tensor(rng.standard_normal((n, k)), dtype=torch.float32,
-                            device="cuda")
+        Xh = rng.standard_normal((n, k))
+        if aligned:
+            X = torch.as_tensor(Xh, dtype=torch.float32, device="cuda")
+        else:
+            flat = torch.empty(n * k + 1, device="cuda")
+            X = flat[1:].view(n, k)
+            X.copy_(torch.as_tensor(Xh))
+            assert X.data_ptr() % 16
         before = spmv.bcsr_spmm.launches
         Y = spmv.bcsr_spmm(bc, X)
         assert spmv.bcsr_spmm.launches == before + 1
@@ -138,6 +151,48 @@ def test_bcsr_spmm_cuda_kernel_matches_plain():
         ref = S @ X.double().cpu().numpy()
         assert float(np.abs(Y.cpu().numpy() - ref).max()
                      / np.abs(ref).max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_bcsr_spmm_cuda_inf_nan_pattern_matches_plain():
+    """Inf and NaN in A (a NaN with a payload only in its low bits among
+    them), in X and in X's block 0, which pad slots multiply: the kernel's
+    isnan and isinf patterns, and the signs of its infinities, are the
+    plain version's (the CPU rehearsal of the split checks the same case
+    in tests/test_torch_bcsr_split.py)."""
+    from suitesparse_tpu_torch.tools.bench_bcsr import inf_nan_case
+    _need_card()
+    bc, Xh = inf_nan_case(np.random.default_rng(11))
+    X = torch.as_tensor(Xh, device="cuda")
+    Y = spmv.bcsr_spmm(bc, X)
+    blocks, cols = bc.device_arrays(X.device)
+    P = spmv.bcsr_spmm_plain(blocks, cols, X, bc.nslots, bc.shape)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(P).any()) and bool(torch.isinf(P).any())
+    assert torch.equal(torch.isnan(Y), torch.isnan(P))
+    assert torch.equal(torch.isinf(Y), torch.isinf(P))
+    assert torch.equal(torch.sign(Y[torch.isinf(Y)]),
+                       torch.sign(P[torch.isinf(P)]))
+    fin = torch.isfinite(P)
+    assert float((Y[fin] - P[fin]).abs().max() / P[fin].abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [7, 32, 128, 256])
+def test_bcsr_spmm_cuda_repeat_is_bit_identical(k):
+    """No atomics and no split of a row's slots: a repeated product is
+    bit-identical."""
+    import scipy.sparse as sp
+    from suitesparse_tpu_torch.core.sparse import SparseCSC
+    _need_card()
+    rng = np.random.default_rng(40 + k)
+    S = sp.random(3000, 2500, 0.002, random_state=rng, format="csc")
+    bc = spmv.to_bcsr(SparseCSC.from_scipy(S))
+    X = torch.as_tensor(rng.standard_normal((2500, k)), dtype=torch.float32,
+                        device="cuda")
+    Y = spmv.bcsr_spmm(bc, X)
+    for _ in range(3):
+        assert torch.equal(spmv.bcsr_spmm(bc, X), Y)
 
 
 @pytest.mark.gpu
