@@ -19,8 +19,13 @@ counting.  Then the dispatch-floor probes (``scale_blocks`` and
 plain versions, and the probe tool's ``main()``), and the Cholesky front
 end on lap3d_44: ``spsolve_chol``, ``CholeskySolver`` refactorizations,
 the wave program and the bfloat16 SYRK option, each refined in float64.
-Any failed check raises and the script exits nonzero; nothing is caught
-and carried on.  Without a CUDA device, or without the package beside
+Last the LU family (``[lu]``, no kernel of the port on its path): the
+multifrontal LU (umf_symbolic, umf_numeric refactorizations, umf_solve
+with float64 refinement) on cd3d_44, a convection-diffusion operator
+built here, and on randunsym_5000; a singular case; and KLU on
+circuit_4000, on the host and through its device twin with a sweep of
+value sets.  Any failed check raises and the script exits nonzero;
+nothing is caught and carried on.  Without a CUDA device, or without the package beside
 it, it exits nonzero and prints no result.
 
 It also profiles one refactorization of each matrix with torch.profiler,
@@ -77,8 +82,23 @@ REFINE_STEPS = 3
 REFACTOR_REPS = 5
 OPS_MATRIX = "lap3d_44"
 GRAPH_N = 1_000_000
+# the [lu] phase: multifrontal LU (cd3d_44, randunsym_5000), a singular
+# case, and KLU's device twin on circuit_like(KLU_N) with a sweep of
+# KLU_SWEEP value sets
+LU_PECLET = 0.5                # cell Peclet number of cd3d
+LU_REPS = 5
+LU_REFINE = 3
+LU_OMEGA_MAX = 1e-11           # after LU_REFINE float64 refinement steps
+LU_OMEGA_RAW_MAX = 1e-5        # the float32 factor's solve, unrefined
+LU_SEED = 7
+KLU_N = 4000
+KLU_SWEEP = 8
+KLU_RES_MAX = 1e-4             # float32 device solves
 # kernel-name fragments of each device-time group in a profile
 GROUPS = (("block_chol", ("block_chol",)),
+          ("getrf", ("getrf", "getf2", "laswp", "lu_unpack",
+                     "unpack_pivots")),
+          ("trsm", ("trsm", "trsv")),
           ("gemm", ("gemm", "gemv", "cutlass", "xmma", "cublas")),
           ("segment_reduce", ("segment",)),
           ("index/scatter", ("index", "scatter", "gather", "put")),
@@ -1222,6 +1242,252 @@ def run_front():
                 bf16_residuals=res_bf16)
 
 
+# ---------------------------------------------------------------------------
+# The LU family: multifrontal LU (umf_*) and KLU's device twin
+# ---------------------------------------------------------------------------
+
+def cd3d(m: int, p: float = LU_PECLET):
+    """The 7-point first-order upwind convection-diffusion operator on the
+    m^3 grid: the Kronecker sum of tridiag(-(1+p), 2+p, -1) along each
+    axis (cell Peclet number p) -- a symmetric pattern with unsymmetric
+    values, n = m^3."""
+    import scipy.sparse as sp
+    from suitesparse_tpu_torch.core.sparse import SparseCSC
+    T = sp.diags([np.full(m - 1, -(1.0 + p)), np.full(m, 2.0 + p),
+                  np.full(m - 1, -1.0)], [-1, 0, 1])
+    eye = sp.identity(m)
+    A = (sp.kron(sp.kron(T, eye), eye) + sp.kron(sp.kron(eye, T), eye)
+         + sp.kron(sp.kron(eye, eye), T))
+    return SparseCSC.from_scipy(sp.csc_matrix(A))
+
+
+def lu_matrices():
+    """The [lu] phase's multifrontal matrices: (name, A)."""
+    from suitesparse_tpu_torch.io.generators import random_unsym
+    return (("cd3d_44", cd3d(44)),
+            ("randunsym_5000", random_unsym(5000, density=0.008)))
+
+
+def omega(A, x, b, system="A") -> float:
+    """umf_solve's componentwise backward error of x for ``system``."""
+    S = A.to_scipy()
+    S = S.conj().T if system == "At" else S
+    r = b - S @ x
+    return float(np.abs(r).max() / max(
+        A.norm(np.inf) * np.abs(x).max() + np.abs(b).max(), 1e-300))
+
+
+def same_numeric(a, b) -> bool:
+    """Bit-identical L and U buffers and block pivots."""
+    import torch
+    return (torch.equal(a.Lb, b.Lb) and torch.equal(a.Ub, b.Ub)
+            and all(torch.equal(p, q) for la, lb in zip(a.pivs, b.pivs)
+                    for p, q in zip(la, lb)))
+
+
+def run_lu_matrix(name, A) -> dict:
+    """umf_symbolic, a first umf_numeric on the card, LU_REPS
+    refactorizations with the same symbolic (bit-identical; the median of
+    their host-side value scaling and permutation beside it), one profiled
+    refactorization, and umf_solve for systems A and At: the float32
+    factor's own omega <= LU_OMEGA_RAW_MAX, and after LU_REFINE float64
+    refinement steps omega <= LU_OMEGA_MAX with no escalation to host
+    KLU."""
+    import torch
+    from suitesparse_tpu_torch.core.common import default_common
+    from suitesparse_tpu_torch.lu import umf_numeric, umf_solve, umf_symbolic
+    n = A.ncol
+    cm = default_common()
+    t0 = time.perf_counter()
+    S = umf_symbolic(A, cm)
+    t_sym = time.perf_counter() - t0
+    check(S.singles is None, f"{name}: took the BTF path")
+    plan = S.plan
+    log(f"[lu] {name} n={n} nnz={A.nnz} strategy={S.strategy} "
+        f"plan.total={plan.total} buckets={plan.nbuckets} "
+        f"levels={len(plan.levels)} umf_symbolic {t_sym:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    t_first, num = host_time(lambda: umf_numeric(A, S, cm))
+    check(not num.singular, f"{name}: numeric flagged singular")
+    check(num.Lb.device.type == "cuda", f"{name}: factor on {num.Lb.device}")
+    t_ref, t_val = [], []
+    for _ in range(LU_REPS):
+        v0 = cm.info["time_umf_values"]
+        t, again = host_time(lambda: umf_numeric(A, S, cm))
+        t_ref.append(t)
+        t_val.append(cm.info["time_umf_values"] - v0)
+        check(same_numeric(num, again),
+              f"{name}: refactorizations are not bit-identical")
+        del again
+    t_med = float(np.median(t_ref))
+    prof = profile_refactor(f"lu_{name}", lambda: umf_numeric(A, S, cm),
+                            t_med * 1e3, PROFILE_DIR)
+    log("[profile] " + json.dumps(prof))
+    rng = np.random.default_rng(LU_SEED)
+    solves = {}
+    for system in ("A", "At"):
+        b = rng.standard_normal(n)
+        t_raw, x0 = host_time(lambda: umf_solve(num, b, system, refine=0,
+                                                common=default_common()))
+        w_raw = omega(A, x0, b, system)
+        check(w_raw <= LU_OMEGA_RAW_MAX,
+              f"{name} {system}: unrefined omega {w_raw:.3e} > "
+              f"{LU_OMEGA_RAW_MAX}")
+        cs = default_common()
+        t_sol, x = host_time(lambda: umf_solve(num, b, system,
+                                               refine=LU_REFINE, A=A,
+                                               common=cs))
+        steps = [cs.info[k] for k in sorted(cs.info)
+                 if k.startswith("umf_omega_")]
+        w = omega(A, x, b, system)
+        check(tuple(x.shape) == (n,) and bool(np.isfinite(x).all()),
+              f"{name} {system}: solution shape/finiteness")
+        check("umf_escalated" not in cs.info,
+              f"{name} {system}: escalated to host KLU")
+        check(w <= LU_OMEGA_MAX,
+              f"{name} {system}: omega {w:.3e} > {LU_OMEGA_MAX}")
+        solves[system] = dict(solve_raw_s=t_raw, omega_raw=w_raw,
+                              solve_refined_s=t_sol, omega_steps=steps,
+                              omega_final=w)
+    return dict(matrix=name, n=n, nnz=int(A.nnz), strategy=S.strategy,
+                plan_total=int(plan.total), buckets=int(plan.nbuckets),
+                levels=len(plan.levels), umf_symbolic_s=t_sym,
+                first_numeric_s=t_first, refactor_ms=t_med * 1e3,
+                refactor_ms_all=[t * 1e3 for t in t_ref],
+                host_values_ms=float(np.median(t_val)) * 1e3,
+                bit_identical_refactor=True,
+                device_busy_ms=prof["device_busy_ms"],
+                idle_share=prof["idle_share"], solves=solves,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def run_lu_singular() -> dict:
+    """cd3d_12 with one row's values set to stored zeros, singletons off so
+    the device numeric runs: flagged singular, status SINGULAR."""
+    from suitesparse_tpu_torch.core.common import default_common
+    from suitesparse_tpu_torch.core.sparse import SparseCSC
+    from suitesparse_tpu_torch.core.status import Status
+    from suitesparse_tpu_torch.lu import umf_numeric, umf_symbolic
+    A = cd3d(12)
+    row = A.ncol // 2
+    data = A.data.copy()
+    data[A.indices == row] = 0.0
+    A0 = SparseCSC(A.indptr, A.indices, data, A.shape)
+    check(A0.nnz == A.nnz, "the zeroed row's entries were dropped")
+    cm = default_common()
+    cm.lu.singletons = False
+    num = umf_numeric(A0, umf_symbolic(A0, cm), cm)
+    check(num.Lb.device.type == "cuda", f"singular case on {num.Lb.device}")
+    check(num.singular, "cd3d_12 with a zero row: not flagged singular")
+    check(cm.status == Status.SINGULAR, f"cd3d_12 zero row: {cm.status}")
+    return dict(matrix="cd3d_12_zero_row", n=A.ncol, row=row,
+                singular=True, status=cm.status.name)
+
+
+def run_klu() -> dict:
+    """KLU on circuit_like(KLU_N): klu_analyze/klu_factor/klu_refactor/
+    klu_solve on the host in float64 through the native kernel (the klu_host
+    tool), then klu_device on the card: LU_REPS refactorizations
+    (bit-identical), one profiled, the solve against the host's, a batched
+    sweep of KLU_SWEEP value sets, and a zero pivot that flips ``ok``."""
+    import torch
+    from suitesparse_tpu_torch.cholesky import residual_norm
+    from suitesparse_tpu_torch.core.sparse import SparseCSC
+    from suitesparse_tpu_torch.io.generators import circuit_like
+    from suitesparse_tpu_torch.lu import klu_device
+    from suitesparse_tpu_torch.tools import klu_host
+    n = KLU_N
+    A = circuit_like(n)
+    rng = np.random.default_rng(LU_SEED)
+    b = rng.standard_normal(n)
+    sym, num, xh, host = klu_host.run(A, b)
+    log(f"[lu] circuit_{n} host KLU (native {host['native']}): "
+        f"{json.dumps(host)}")
+
+    t_plan, (plan, refactor, solve) = host_time(
+        lambda: klu_device(A, sym, num))
+    av = torch.as_tensor(A.data, dtype=torch.float32, device="cuda")
+    t_ref, first = [], None
+    for _ in range(LU_REPS):
+        t, out = host_time(lambda: refactor(av))
+        t_ref.append(t)
+        first = first or out
+        check(all(torch.equal(f, g) for f, g in zip(first[0], out[0]))
+              and torch.equal(first[1], out[1]) and bool(out[2]),
+              f"circuit_{n}: device refactorizations differ or not ok")
+    factors, Rs, ok = first
+    check(Rs.device.type == "cuda", f"circuit_{n}: klu_device on {Rs.device}")
+    t_med = float(np.median(t_ref))
+    prof = profile_refactor(f"klu_circuit_{n}", lambda: refactor(av),
+                            t_med * 1e3, PROFILE_DIR)
+    log("[profile] " + json.dumps(prof))
+    ms_solve = []
+    for _ in range(LU_REPS):
+        t, x = host_time(lambda: solve(factors, Rs, av, b))
+        ms_solve.append(t * 1e3)
+    xd = x.double().cpu().numpy()
+    res_d = residual_norm(A, xd, b)
+    rel_h = float(np.abs(xd - xh).max() / np.abs(xh).max())
+    check(res_d <= KLU_RES_MAX,
+          f"circuit_{n} device residual {res_d:.3e} > {KLU_RES_MAX}")
+    check(rel_h <= KLU_RES_MAX,
+          f"circuit_{n} device vs host solution {rel_h:.3e}")
+
+    scale = rng.uniform(0.9, 1.1, (KLU_SWEEP, A.nnz))
+    vals = torch.as_tensor(A.data[None, :] * scale, dtype=torch.float32,
+                           device="cuda")
+    t_sw, (fs, Rss, oks) = host_time(lambda: refactor(vals))
+    t_sws, xs = host_time(lambda: solve(fs, Rss, vals, b))
+    check(tuple(xs.shape) == (KLU_SWEEP, n) and bool(oks.all()),
+          f"circuit_{n} sweep: shape {tuple(xs.shape)}, ok {oks.tolist()}")
+    res_sw = []
+    for s in range(KLU_SWEEP):
+        At = SparseCSC(A.indptr, A.indices, A.data * scale[s], A.shape)
+        res_sw.append(residual_norm(At, xs[s].double().cpu().numpy(), b))
+    check(max(res_sw) <= KLU_RES_MAX,
+          f"circuit_{n} sweep residuals {max(res_sw):.3e} > {KLU_RES_MAX}")
+    del fs, Rss, xs, vals
+
+    # a zero pivot: every entry of the first pivot column set to zero
+    zero = A.data.copy()
+    j = int(sym.q[0])
+    zero[A.indptr[j]:A.indptr[j + 1]] = 0.0
+    _, _, ok0 = refactor(torch.as_tensor(zero, dtype=torch.float32,
+                                         device="cuda"))
+    check(not bool(ok0), f"circuit_{n}: a zero pivot left ok True")
+    return dict(matrix=f"circuit_{n}", n=n, nnz=int(A.nnz),
+                blocks=host["blocks"], largest_block=host["largest_block"],
+                host_native=host["native"],
+                host_analyze_s=host["klu_analyze_s"],
+                host_factor_s=host["klu_factor_s"],
+                host_refactor_s=host["klu_refactor_s"],
+                host_solve_s=host["klu_solve_s"],
+                host_residual=host["residual"], device_plan_s=t_plan,
+                device_refactor_ms=t_med * 1e3,
+                device_refactor_ms_all=[t * 1e3 for t in t_ref],
+                device_busy_ms=prof["device_busy_ms"],
+                idle_share=prof["idle_share"],
+                device_solve_ms=float(np.median(ms_solve)),
+                device_residual=res_d, device_vs_host_rel=rel_h,
+                bit_identical_refactor=True, sweep=KLU_SWEEP,
+                sweep_refactor_ms=t_sw * 1e3, sweep_solve_ms=t_sws * 1e3,
+                sweep_residual_max=max(res_sw), zero_pivot_ok=bool(ok0))
+
+
+def run_lu() -> list:
+    """The [lu] phase: the multifrontal LU on each of lu_matrices(), the
+    singular case and KLU; one ``[lu] {json}`` line per matrix."""
+    rows = []
+    for name, A in lu_matrices():
+        rows.append(run_lu_matrix(name, A))
+        del A
+    rows.append(run_lu_singular())
+    rows.append(run_klu())
+    for row in rows:
+        log(f"[lu] {json.dumps(row)}")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1303,6 +1569,17 @@ def main() -> int:
     log(f"[main] block_chol launches on the front-end path: "
         f"{block_chol.launches}")
     log(f"[front] {json.dumps(front)}")
+
+    # the LU family: no kernel of the port lies on its path
+    probes = (block_chol, bcsr_spmm, probe.scale_blocks, probe.scale_gather)
+    for k in probes:
+        k.launches = 0                 # the LU path's count starts here
+    run_lu()
+    lu_launches = {k.__name__: k.launches for k in probes}
+    log(f"[main] kernel launches on the LU path: {json.dumps(lu_launches)}")
+    check(not any(lu_launches.values()),
+          f"a kernel of the port ran on the LU path: {lu_launches}")
+    log(f"[time] lu phase done at {time.perf_counter() - t_start:.1f} s")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": [kline, bline] + dlines}), flush=True)

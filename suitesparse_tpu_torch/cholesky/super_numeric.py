@@ -273,7 +273,11 @@ def segment_sum(data: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     """Sum of consecutive runs of ``data`` along dim 0: run k has lens[k]
     entries (sorted segment ids, as every map of the plan has).  Each
     segment is reduced in one fixed order without atomics, so the result
-    is bit-identical from run to run on the card."""
+    is bit-identical from run to run on the card.  Complex data (which
+    segment_reduce does not take) is summed as (real, imaginary) pairs."""
+    if data.is_complex():
+        return torch.view_as_complex(
+            segment_sum(torch.view_as_real(data), lens))
     return torch.segment_reduce(data, "sum", lengths=lens, axis=0,
                                 unsafe=True)
 

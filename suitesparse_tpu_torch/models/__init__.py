@@ -1,2 +1,3 @@
+from .sparseinv import sparseinv
 from .ssmult import sfmult, ssmult
 from . import ldl

@@ -9,7 +9,9 @@ import numpy as np
 import torch
 
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
-                 np.dtype(np.float64): torch.float64}
+                 np.dtype(np.float64): torch.float64,
+                 np.dtype(np.complex64): torch.complex64,
+                 np.dtype(np.complex128): torch.complex128}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -35,20 +37,24 @@ def device_of(*objs, device=None) -> torch.device:
     return resolve_device(device)
 
 
-def default_dtype(device: torch.device):
+def default_dtype(device: torch.device, complex_: bool = False):
     """float64 on the CPU, float32 on the card (the reference's rule:
-    f64 where the platform runs it at full rate, f32 on the accelerator)."""
+    f64 where the platform runs it at full rate, f32 on the accelerator);
+    complex128 and complex64 for complex values."""
+    if complex_:
+        return np.complex128 if device.type == "cpu" else np.complex64
     return np.float64 if device.type == "cpu" else np.float32
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """Map a numpy-style float dtype (or a torch dtype) to a torch dtype."""
+    """Map a numpy-style float or complex dtype (or a torch dtype) to a
+    torch dtype."""
     if isinstance(dtype, torch.dtype):
         return dtype
     got = _TORCH_DTYPES.get(np.dtype(dtype))
     if got is None:
         raise TypeError(f"unsupported factor dtype {dtype!r} "
-                        "(float32 or float64)")
+                        "(float32, float64, complex64 or complex128)")
     return got
 
 

@@ -1,24 +1,27 @@
 """Factor/matrix serialization (checkpoint-resume of factorizations).
 
-Counterpart of suitesparse_tpu/utils/serialize.py for the matrices and the
-Cholesky factors; the on-disk format is the reference's, so a file written
+Counterpart of suitesparse_tpu/utils/serialize.py for the matrices, the
+Cholesky factors and the UMFPACK and KLU objects; the on-disk format is the reference's, so a file written
 by either package loads in the other.  Reference equivalents:
 umfpack_*_save_numeric / load_numeric (versioned opaque blobs,
 umfpack_save_numeric.c:33,61) and GxB_Matrix_serialize/deserialize with
 block compression (GB_serialize.c).  Archives are versioned .npz files
 (zlib-compressed) keyed by a format tag.
 
-A supernodal factor's panel buffer is saved from wherever it lives and
-loaded onto ``device``: the card unless the caller asks for the CPU.
+A supernodal factor's panel buffer and a UMFPACK numeric's L/U buffers
+are saved from wherever they live and loaded onto ``device``: the card
+unless the caller asks for the CPU.  A KLU numeric lives on the host.
 """
 from __future__ import annotations
 
 import json
+from typing import Any
 
 import numpy as np
 
 from ..core.sparse import SparseCSC
 from ..core.status import SparseError, Status
+from .device import resolve_device
 
 # the reference package's archive tag, kept so files cross between the two
 _MAGIC = "suitesparse_tpu"
@@ -157,6 +160,228 @@ def load_super_factor(path, device=None):
     ss, plan = _ss_load(meta, arr)
     return factor_from_numpy(plan, arr["Lx"].astype(meta["dtype"]),
                              arr["perm"], minor=meta["minor"], device=device)
+
+
+
+# -- UMFPACK symbolic / numeric ----------------------------------------------
+# (umfpack_save_symbolic.c / umfpack_save_numeric.c:33,61: versioned opaque
+# blob; load reconstructs a standalone object usable for numeric/solve.)
+
+def _csc_pack(A: SparseCSC, arrays: dict, prefix: str) -> dict:
+    arrays[prefix + "indptr"] = np.asarray(A.indptr)
+    arrays[prefix + "indices"] = np.asarray(A.indices)
+    if A.data is not None:
+        arrays[prefix + "data"] = np.asarray(A.data)
+    return dict(shape=list(A.shape), stype=int(A.stype),
+                has_values=A.data is not None)
+
+
+def _csc_load(meta: dict, arr: dict, prefix: str) -> SparseCSC:
+    return SparseCSC(arr[prefix + "indptr"], arr[prefix + "indices"],
+                     arr.get(prefix + "data"), tuple(meta["shape"]),
+                     stype=meta["stype"])
+
+
+def _umf_sym_pack(S, arrays: dict, prefix: str) -> dict:
+    meta = dict(n=S.n, strategy=S.strategy, sym_ratio=float(S.sym_ratio),
+                nzdiag=int(S.nzdiag))
+    if S.singles is not None:
+        sg = S.singles
+        arrays[prefix + "p"] = sg.p
+        arrays[prefix + "q"] = sg.q
+        arrays[prefix + "r"] = sg.r
+        subs = []
+        for k, sub in enumerate(sg.subs):
+            if sub is None:
+                subs.append(None)
+            else:
+                ssub, Ablk = sub
+                subs.append(dict(
+                    sym=_umf_sym_pack(ssub, arrays, f"{prefix}s{k}_"),
+                    A=_csc_pack(Ablk, arrays, f"{prefix}A{k}_")))
+        meta["subs"] = subs
+        return meta
+    for name in ("rowmatch", "a_scatter_L", "a_scatter_U",
+                 "a_perm_rows", "a_perm_cols"):
+        arrays[prefix + name] = getattr(S, name)
+    for name in ("perm", "parent", "post", "colcount"):
+        arrays[prefix + "sym_" + name] = getattr(S.sym, name)
+    meta["sym"] = dict(n=S.sym.n, lnz=int(S.sym.lnz),
+                       flops=float(S.sym.flops), anz=int(S.sym.anz),
+                       method=S.sym.method, is_super=bool(S.sym.is_super))
+    meta["ss"] = _ss_pack(S.ss, arrays, prefix + "ss_")
+    return meta
+
+
+def _umf_sym_load(meta: dict, arr: dict, prefix: str):
+    from ..cholesky.symbolic import Symbolic
+    from ..lu.multifrontal import UmfSingletons, UmfSymbolic
+    if "subs" in meta:
+        subs = []
+        for k, sm in enumerate(meta["subs"]):
+            if sm is None:
+                subs.append(None)
+            else:
+                subs.append((_umf_sym_load(sm["sym"], arr, f"{prefix}s{k}_"),
+                             _csc_load(sm["A"], arr, f"{prefix}A{k}_")))
+        return UmfSymbolic(
+            n=meta["n"], strategy=meta["strategy"], rowmatch=None, sym=None,
+            ss=None, plan=None, a_scatter_L=None, a_scatter_U=None,
+            a_perm_rows=arr[prefix + "p"], a_perm_cols=arr[prefix + "q"],
+            sym_ratio=meta["sym_ratio"], nzdiag=meta["nzdiag"],
+            singles=UmfSingletons(p=arr[prefix + "p"], q=arr[prefix + "q"],
+                                  r=arr[prefix + "r"], subs=subs))
+    ss, plan = _ss_load(meta["ss"], arr, prefix + "ss_")
+    sm = meta["sym"]
+    sym = Symbolic(n=sm["n"], perm=arr[prefix + "sym_perm"],
+                   parent=arr[prefix + "sym_parent"],
+                   post=arr[prefix + "sym_post"],
+                   colcount=arr[prefix + "sym_colcount"], lnz=sm["lnz"],
+                   flops=sm["flops"], anz=sm["anz"], method=sm["method"],
+                   is_super=sm["is_super"], supernodes=ss)
+    return UmfSymbolic(n=meta["n"], strategy=meta["strategy"],
+                       rowmatch=arr[prefix + "rowmatch"], sym=sym, ss=ss,
+                       plan=plan, a_scatter_L=arr[prefix + "a_scatter_L"],
+                       a_scatter_U=arr[prefix + "a_scatter_U"],
+                       a_perm_rows=arr[prefix + "a_perm_rows"],
+                       a_perm_cols=arr[prefix + "a_perm_cols"],
+                       sym_ratio=meta["sym_ratio"], nzdiag=meta["nzdiag"])
+
+
+def save_umf_symbolic(path, S) -> None:
+    """umfpack_save_symbolic analog (reusable across numeric calls)."""
+    arrays: dict[str, Any] = {}
+    meta = _umf_sym_pack(S, arrays, "")
+    _pack("umf_symbolic", meta, arrays, path)
+
+
+def load_umf_symbolic(path):
+    meta, arr = _unpack(path, "umf_symbolic")
+    return _umf_sym_load(meta, arr, "")
+
+
+def _umf_num_pack(num, arrays: dict, prefix: str) -> dict:
+    meta = dict(dtype=np.dtype(num.dtype).name, singular=bool(num.singular))
+    arrays[prefix + "Rs"] = np.asarray(num.Rs)
+    if num.Cs is not None:
+        arrays[prefix + "Cs"] = np.asarray(num.Cs)
+    if num.bnums is not None:
+        meta["spq"] = _csc_pack(SparseCSC.from_scipy(num.Spq_csc.tocsc()),
+                                arrays, prefix + "spq_")
+        blocks = []
+        for k, bn in enumerate(num.bnums):
+            if bn is None:
+                blocks.append(None)
+            else:
+                # inner symbolic comes from S.singles.subs[k] on load
+                blocks.append(dict(
+                    num=_umf_num_pack(bn, arrays, f"{prefix}n{k}_"),
+                    A=_csc_pack(num.bAs[k], arrays, f"{prefix}nA{k}_")))
+        meta["blocks"] = blocks
+        return meta
+    arrays[prefix + "Lb"] = num.Lb.cpu().numpy()
+    arrays[prefix + "Ub"] = num.Ub.cpu().numpy()
+    piv_counts = []
+    for li, lp in enumerate(num.pivs):
+        piv_counts.append(len(lp))
+        for bi, pv in enumerate(lp):
+            # int32, the dtype the reference writes them in
+            arrays[f"{prefix}piv{li}_{bi}"] = pv.cpu().numpy().astype(
+                np.int32)
+    meta["piv_counts"] = piv_counts
+    return meta
+
+
+def _umf_num_load(meta: dict, arr: dict, prefix: str, S, dev):
+    import torch
+    from ..lu.multifrontal import UmfNumeric
+    Rs = arr[prefix + "Rs"]
+    dtype = np.dtype(meta["dtype"])
+    if "blocks" in meta:
+        spq = _csc_load(meta["spq"], arr, prefix + "spq_").to_scipy().tocsc()
+        bnums, bAs = [], []
+        for k, bm in enumerate(meta["blocks"]):
+            if bm is None:
+                bnums.append(None)
+                bAs.append(None)
+            else:
+                bnums.append(_umf_num_load(bm["num"], arr, f"{prefix}n{k}_",
+                                           S.singles.subs[k][0], dev))
+                bAs.append(_csc_load(bm["A"], arr, f"{prefix}nA{k}_"))
+        return UmfNumeric(symbolic=S, Lb=None, Ub=None, pivs=None, Rs=Rs,
+                          dtype=dtype, singular=meta["singular"],
+                          bnums=bnums, bAs=bAs, Spq_csc=spq,
+                          Spq_csr=spq.tocsr())
+    pivs = tuple(
+        tuple(torch.as_tensor(arr[f"{prefix}piv{li}_{bi}"].astype(np.int64),
+                              device=dev) for bi in range(cnt))
+        for li, cnt in enumerate(meta["piv_counts"]))
+    return UmfNumeric(symbolic=S,
+                      Lb=torch.as_tensor(arr[prefix + "Lb"], device=dev),
+                      Ub=torch.as_tensor(arr[prefix + "Ub"], device=dev),
+                      pivs=pivs,
+                      Rs=Rs, dtype=dtype, singular=meta["singular"],
+                      Cs=arr.get(prefix + "Cs"))
+
+
+def save_umf_numeric(path, num) -> None:
+    """umfpack_save_numeric analog.  The blob embeds the symbolic so the
+    loaded object is standalone for solve (umfpack_di_solve takes Numeric
+    only)."""
+    arrays: dict[str, Any] = {}
+    meta = dict(num=_umf_num_pack(num, arrays, ""),
+                sym=_umf_sym_pack(num.symbolic, arrays, "S_"))
+    _pack("umf_numeric", meta, arrays, path)
+
+
+def load_umf_numeric(path, device=None):
+    """The saved UmfNumeric, its buffers and pivots on ``device`` (the
+    card when None; raises without one)."""
+    dev = resolve_device(device)
+    meta, arr = _unpack(path, "umf_numeric")
+    S = _umf_sym_load(meta["sym"], arr, "S_")
+    return _umf_num_load(meta["num"], arr, "", S, dev)
+
+
+# -- KLU ---------------------------------------------------------------------
+
+def save_klu(path, num) -> None:
+    sym = num.sym
+    blocks_meta = []
+    arrays: dict[str, Any] = dict(p=sym.p, q=sym.q, r=sym.r, pnum=num.pnum,
+                                  Rs=num.Rs, p_final=num.p_final)
+    off = num.offdiag.tocoo()
+    arrays.update(off_row=off.row.astype(np.int64),
+                  off_col=off.col.astype(np.int64), off_val=off.data)
+    for i, blk in enumerate(num.blocks):
+        blocks_meta.append(blk.n)
+        for name in ("Lp", "Li", "Lx", "Up", "Ui", "Ux", "pivot_rows"):
+            arrays[f"b{i}_{name}"] = getattr(blk, name)
+    _pack("klu", dict(n=sym.n, nblocks=sym.nblocks, nmatch=int(sym.nmatch),
+                      ordering=sym.ordering, blocks=blocks_meta,
+                      singular_col=int(num.singular_col),
+                      flops=float(num.flops)), arrays, path)
+
+
+def load_klu(path):
+    import scipy.sparse as sp
+    from ..lu.klu import KLUNumeric, KLUSymbolic, _BlockLU
+    meta, arr = _unpack(path, "klu")
+    sym = KLUSymbolic(n=meta["n"], p=arr["p"], q=arr["q"], r=arr["r"],
+                      nblocks=meta["nblocks"], nmatch=meta["nmatch"],
+                      ordering=meta["ordering"])
+    blocks = []
+    for i, nb in enumerate(meta["blocks"]):
+        blocks.append(_BlockLU(n=nb, Lp=arr[f"b{i}_Lp"], Li=arr[f"b{i}_Li"],
+                               Lx=arr[f"b{i}_Lx"], Up=arr[f"b{i}_Up"],
+                               Ui=arr[f"b{i}_Ui"], Ux=arr[f"b{i}_Ux"],
+                               pivot_rows=arr[f"b{i}_pivot_rows"]))
+    n = meta["n"]
+    off = sp.coo_matrix((arr["off_val"], (arr["off_row"], arr["off_col"])),
+                        shape=(n, n)).tocsc()
+    return KLUNumeric(sym=sym, blocks=blocks, pnum=arr["pnum"], Rs=arr["Rs"],
+                      offdiag=off, singular_col=meta["singular_col"],
+                      flops=meta["flops"], p_final=arr["p_final"])
 
 
 # -- GxB_Matrix_serialize / deserialize analog -------------------------------

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import cd3d, omega
 from suitesparse_tpu_torch.cholesky import (analyze, factorize_super,
                                             residual_norm, solve_super,
                                             super_symbolic)
@@ -287,3 +288,114 @@ def test_wave_and_bf16_factors_on_card_match_cpu():
         t = fg.plan.total
         got, want = fg.Lx[:t].cpu(), fc.Lx[:t]
         assert float((got - want).abs().max() / want.abs().max()) <= tol
+
+
+def _lu_matrix(name):
+    import scipy.sparse as sp
+    from suitesparse_tpu_torch.core.sparse import SparseCSC
+    from suitesparse_tpu_torch.io.generators import random_unsym
+    if name == "cd3d_10":
+        return cd3d(10)
+    A = random_unsym(300, 0.05, seed=3)
+    if name == "complex":
+        S = A.to_scipy() + 1j * sp.random(
+            300, 300, 0.02, random_state=np.random.default_rng(4)) \
+            + 2j * sp.identity(300)
+        A = SparseCSC.from_scipy(sp.csc_matrix(S))
+    return A
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["cd3d_10", "random_unsym", "complex"])
+def test_umf_on_card_matches_cpu(name):
+    """umf_numeric on the card (float32 / complex64) against the port's
+    CPU float64 factor: raw solves within 1e-4, and omega <= 1e-11 after
+    3 float64 refinement steps without escalation; refactors on the card
+    are bit-identical."""
+    _need_card()
+    from suitesparse_tpu_torch.lu import umf_numeric, umf_solve, umf_symbolic
+    A = _lu_matrix(name)
+    cm = default_common()
+    cm.lu.singletons = False
+    S = umf_symbolic(A, cm)
+    ng = umf_numeric(A, S, cm)
+    assert ng.Lb.device.type == "cuda" and not ng.singular
+    assert ng.Lb.dtype == (torch.complex64 if name == "complex"
+                           else torch.float32)
+    nc = umf_numeric(A, S, cm, device="cpu")
+    again = umf_numeric(A, S, cm)
+    assert torch.equal(ng.Lb, again.Lb) and torch.equal(ng.Ub, again.Ub)
+    assert all(torch.equal(p, q) for lp, lq in zip(ng.pivs, again.pivs)
+               for p, q in zip(lp, lq))
+    rng = np.random.default_rng(5)
+    b = rng.standard_normal(A.ncol)
+    for system in ("A", "At", "Aat"):
+        xg = umf_solve(ng, b, system, refine=0)
+        xc = umf_solve(nc, b, system, refine=0)
+        assert np.abs(xg - xc).max() <= 1e-4 * np.abs(xc).max(), system
+    for system in ("A", "At"):
+        cs = default_common()
+        x = umf_solve(ng, b, system, refine=3, A=A, common=cs)
+        assert "umf_escalated" not in cs.info
+        assert omega(A, x, b, system) <= 1e-11, system
+
+
+@pytest.mark.gpu
+def test_umf_singular_flag_on_card():
+    """A zero row (stored zeros) reaching the device numeric is flagged."""
+    _need_card()
+    from suitesparse_tpu_torch.core.sparse import SparseCSC
+    from suitesparse_tpu_torch.core.status import Status
+    from suitesparse_tpu_torch.lu import umf_numeric, umf_symbolic
+    A = cd3d(8)
+    data = A.data.copy()
+    data[A.indices == 200] = 0.0
+    A0 = SparseCSC(A.indptr, A.indices, data, A.shape)
+    cm = default_common()
+    cm.lu.singletons = False
+    num = umf_numeric(A0, umf_symbolic(A0, cm), cm)
+    assert num.singular and cm.status == Status.SINGULAR
+    ok = umf_numeric(A, umf_symbolic(A, cm), cm)
+    assert not ok.singular and cm.status == Status.OK
+
+
+@pytest.mark.gpu
+def test_klu_device_on_card_matches_cpu():
+    """klu_device on the card (float32) against the CPU (float64):
+    factors and solutions within 1e-4, a batched sweep, bit-identical
+    repeats, and a zero pivot that flips ok."""
+    _need_card()
+    from suitesparse_tpu_torch.io.generators import circuit_like
+    from suitesparse_tpu_torch.lu import klu_analyze, klu_device, klu_factor
+    A = circuit_like(300, seed=3)
+    sym = klu_analyze(A)
+    num = klu_factor(A, sym)
+    _, rg, sg = klu_device(A, sym, num)
+    _, rc, sc = klu_device(A, sym, num, device="cpu")
+    fg, Rg, okg = rg(A.data)
+    fc, Rc, okc = rc(A.data)
+    assert fg[0].dtype == torch.float32 and bool(okg) and bool(okc)
+    for a, c in zip(fg, fc):
+        assert float((a.double().cpu() - c).abs().max()
+                     / c.abs().max()) <= 1e-4
+    again = rg(A.data)
+    assert all(torch.equal(a, c) for a, c in zip(fg, again[0]))
+    b = np.random.default_rng(6).standard_normal(A.ncol)
+    xg = sg(fg, Rg, A.data, b).double().cpu().numpy()
+    xc = sc(fc, Rc, A.data, b).numpy()
+    assert np.abs(xg - xc).max() <= 1e-4 * np.abs(xc).max()
+    scale = np.random.default_rng(7).uniform(0.9, 1.1, (4, A.nnz))
+    vals = torch.as_tensor(A.data * scale, dtype=torch.float32,
+                           device="cuda")
+    fs, Rs, oks = rg(vals)
+    xs = sg(fs, Rs, vals, b)
+    assert xs.shape == (4, A.ncol) and bool(oks.all())
+    for s in range(4):
+        S = A.to_scipy().copy()
+        S.data = S.data * scale[s]
+        x = xs[s].double().cpu().numpy()
+        assert residual_norm(type(A).from_scipy(S), x, b) <= 1e-4
+    zero = A.data.copy()
+    j = int(sym.q[0])
+    zero[A.indptr[j]:A.indptr[j + 1]] = 0.0
+    assert not bool(rg(zero)[2])

@@ -29,6 +29,15 @@ import suitesparse_tpu_torch.cholesky.pf
 import suitesparse_tpu_torch.cholesky.simplicial
 import suitesparse_tpu_torch.cholesky.super_numeric
 import suitesparse_tpu_torch.cholesky.wave
+import suitesparse_tpu_torch.core.check
+import suitesparse_tpu_torch.graph.btf
+import suitesparse_tpu_torch.lu
+import suitesparse_tpu_torch.lu.klu
+import suitesparse_tpu_torch.lu.klu_device
+import suitesparse_tpu_torch.lu.multifrontal
+import suitesparse_tpu_torch.lu.report
+import suitesparse_tpu_torch.lu.slip
+import suitesparse_tpu_torch.ordering.colamd
 import suitesparse_tpu_torch.io.generators
 import suitesparse_tpu_torch.utils.cuda_build
 import suitesparse_tpu_torch.ops
@@ -42,8 +51,11 @@ import suitesparse_tpu_torch.graphblas.extra
 import suitesparse_tpu_torch.graphblas.objects
 import suitesparse_tpu_torch.models
 import suitesparse_tpu_torch.models.ldl
+import suitesparse_tpu_torch.models.sparseinv
 import suitesparse_tpu_torch.models.ssmult
 import suitesparse_tpu_torch.tools
+import suitesparse_tpu_torch.tools.bench_bcsr
+import suitesparse_tpu_torch.tools.klu_host
 import suitesparse_tpu_torch.tools.microbench_dispatch
 import suitesparse_tpu_torch.utils
 import suitesparse_tpu_torch.utils.serialize
@@ -163,6 +175,39 @@ def test_sparse_product_entry_points_raise_without_a_card(monkeypatch):
     # host-only operations and the host BFS need no card
     assert gb.bfs_levels(A, 0, method="push")[0] == 0
     assert gb.select(A, "tril").nnz > 0
+
+
+def test_lu_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """umf_numeric, klu_device and its two programs, and load_umf_numeric
+    run on the card when no device is given, and raise without one; the
+    host analyses (umf_symbolic, klu_*, btf, colamd) need no card."""
+    from suitesparse_tpu_torch import lu
+    from suitesparse_tpu_torch.graph import btf_order
+    from suitesparse_tpu_torch.io.generators import circuit_like
+    from suitesparse_tpu_torch.ordering import colamd
+    from suitesparse_tpu_torch.utils import serialize
+    A = circuit_like(60, seed=1)
+    S = lu.umf_symbolic(A)
+    serialize.save_umf_numeric(tmp_path / "n.npz",
+                               lu.umf_numeric(A, S, device="cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sym = lu.klu_analyze(A)
+    num = lu.klu_factor(A, sym)
+    plan = lu.klu_device_plan(A, sym, num)
+    calls = [
+        lambda: lu.umf_numeric(A, S),
+        lambda: lu.umf_numeric(A, S, default_common(), np.float32),
+        lambda: lu.klu_device(A, sym, num),
+        lambda: lu.klu_refactor_jit(plan),
+        lambda: lu.klu_solve_jit(plan),
+        lambda: serialize.load_umf_numeric(tmp_path / "n.npz"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    b = np.ones(A.ncol)
+    assert np.abs(A.to_scipy() @ lu.klu_solve(num, b) - b).max() < 1e-12
+    assert btf_order(A).nblocks >= 1 and len(colamd(A)) == A.ncol
 
 
 def test_cpu_defaults_to_float64_and_dtype_is_honoured():

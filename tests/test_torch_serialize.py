@@ -1,14 +1,16 @@
 """The port's serialization (utils/serialize.py) against the JAX reference:
 round trips, and files crossed both ways between the packages -- written
 by the reference and loaded by the port, and the other way -- for sparse
-matrices, simplicial factors, supernodal factors and GraphBLAS blobs.
-The format is shared, so every crossing is exact."""
+matrices, simplicial factors, supernodal factors, GraphBLAS blobs, and
+UMFPACK symbolic/numeric and KLU objects.  The format is shared, so every
+crossing is exact."""
 import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
 
 import suitesparse_tpu.cholesky as ref_chol
+import suitesparse_tpu.lu as ref_lu
 from suitesparse_tpu import utils as ref_utils
 from suitesparse_tpu.core.common import default_common as ref_common
 from suitesparse_tpu.core.sparse import SparseCSC as RefCSC
@@ -16,6 +18,7 @@ from suitesparse_tpu.core.status import SparseError as RefError
 from suitesparse_tpu.io import generators as ref_gen
 
 import suitesparse_tpu_torch.cholesky as port_chol
+import suitesparse_tpu_torch.lu as port_lu
 from suitesparse_tpu_torch import graphblas as port_gb
 from suitesparse_tpu_torch import utils as port_utils
 from suitesparse_tpu_torch.core.common import default_common as port_common
@@ -27,6 +30,9 @@ DIRECTIONS = [("ref", "port"), ("port", "ref"), ("port", "port")]
 UTILS = {"ref": ref_utils, "port": port_utils}
 GENS = {"ref": ref_gen, "port": port_gen}
 CHOL = {"ref": ref_chol, "port": port_chol}
+LU = {"ref": ref_lu, "port": port_lu}
+COMMON = {"ref": ref_common, "port": port_common}
+CSC = {"ref": RefCSC, "port": PortCSC}
 
 
 def _same_csc(A, B):
@@ -106,6 +112,102 @@ def test_super_factor_crosses_between_packages(tmp_path, src, dst, program,
         1e-13 if dtype == np.float64 else 1e-5)
 
 
+def _on_cpu(pkg):
+    return {"device": "cpu"} if pkg == "port" else {}
+
+
+def _umf_case(pkg, case):
+    """A seeded matrix of ``pkg`` and its UMF symbolic and numeric: the
+    multifrontal path ("unsymmetric" strategy), the BTF/singleton path
+    with inner blocks, and complex."""
+    cm = COMMON[pkg]()
+    if case == "btf":
+        A = GENS[pkg].random_unsym(120, 0.03, seed=2)
+    else:
+        A = GENS[pkg].random_unsym(80, 0.08, seed=1)
+        cm.lu.singletons = False
+        if case == "complex":
+            S = A.to_scipy() + 1j * sp.random(
+                80, 80, 0.05, random_state=np.random.default_rng(2)) \
+                + 3j * sp.identity(80)
+            A = CSC[pkg].from_scipy(sp.csc_matrix(S))
+    S = LU[pkg].umf_symbolic(A, cm)
+    assert (S.singles is not None) == (case == "btf")
+    return A, S, LU[pkg].umf_numeric(A, S, cm, **_on_cpu(pkg))
+
+
+@pytest.mark.parametrize("src,dst", DIRECTIONS)
+@pytest.mark.parametrize("case", ["unsymmetric", "btf", "complex"])
+def test_umf_files_cross_between_packages(tmp_path, src, dst, case):
+    """A UMF symbolic and numeric saved by one package load in the other
+    and solve the same system: every array crosses exactly, and the
+    crossed factor's solutions agree within 1e-12 with the saving
+    package's."""
+    A, S, num = _umf_case(src, case)
+    UTILS[src].save_umf_symbolic(tmp_path / "s.npz", S)
+    UTILS[src].save_umf_numeric(tmp_path / "n.npz", num)
+    S2 = UTILS[dst].load_umf_symbolic(tmp_path / "s.npz")
+    assert isinstance(S2, LU[dst].UmfSymbolic)
+    assert (S2.n, S2.strategy) == (S.n, S.strategy)
+    if S.singles is None:
+        for k in ("a_scatter_L", "a_scatter_U", "a_perm_rows",
+                  "a_perm_cols", "rowmatch"):
+            assert np.array_equal(getattr(S2, k), getattr(S, k)), k
+        assert S2.plan.meta == S.plan.meta
+    num2 = UTILS[dst].load_umf_numeric(tmp_path / "n.npz", **_on_cpu(dst))
+    assert isinstance(num2, LU[dst].UmfNumeric)
+    assert num2.singular == num.singular and np.dtype(num2.dtype) == \
+        np.dtype(num.dtype)
+    if dst == "port":
+        assert all(bn is None or bn.Lb.device.type == "cpu"
+                   for bn in (num2.bnums or [num2]))
+    A2 = CSC[dst](A.indptr, A.indices, A.data, A.shape)
+    b = np.random.default_rng(3).standard_normal(A.ncol)
+    for system in ("A", "At"):
+        x = LU[src].umf_solve(num, b, system, A=A)
+        x2 = LU[dst].umf_solve(num2, b, system, A=A2)
+        assert np.abs(x2 - x).max() <= 1e-12 * np.abs(x).max(), system
+        x = LU[src].umf_solve(num, b, system, refine=0)
+        x2 = LU[dst].umf_solve(num2, b, system, refine=0)
+        assert np.abs(x2 - x).max() <= 1e-12 * np.abs(x).max(), system
+    # and a loaded symbolic refactors the matrix (numeric reuse)
+    num3 = LU[dst].umf_numeric(A2, S2, COMMON[dst](), **_on_cpu(dst))
+    x3 = LU[dst].umf_solve(num3, b, A=A2)
+    assert np.abs(A.to_scipy() @ x3 - b).max() < 1e-10
+
+
+@pytest.mark.parametrize("src,dst", DIRECTIONS)
+@pytest.mark.parametrize("gen", ["circuit_like", "multiblock"])
+def test_klu_file_crosses_between_packages(tmp_path, src, dst, gen):
+    if gen == "circuit_like":
+        A = GENS[src].circuit_like(150, seed=4)
+    else:
+        rng = np.random.default_rng(6)
+        M = sp.triu(sp.random(60, 60, 0.08, random_state=rng), 1) \
+            + sp.diags(2.0 + rng.random(60))
+        M = M.tolil()
+        M[40, 39] = M[20, 18] = 0.7
+        A = CSC[src].from_scipy(sp.csc_matrix(M))
+    sym = LU[src].klu_analyze(A)
+    num = LU[src].klu_factor(A, sym)
+    assert (sym.nblocks > 1) == (gen == "multiblock")
+    UTILS[src].save_klu(tmp_path / "k.npz", num)
+    num2 = UTILS[dst].load_klu(tmp_path / "k.npz")
+    assert isinstance(num2, LU[dst].KLUNumeric)
+    for k in ("p", "q", "r"):
+        assert np.array_equal(getattr(num2.sym, k), getattr(sym, k))
+    for k in ("pnum", "Rs", "p_final"):
+        assert np.array_equal(getattr(num2, k), getattr(num, k))
+    assert (num2.offdiag != num.offdiag).nnz == 0
+    for b1, b2 in zip(num.blocks, num2.blocks, strict=True):
+        for k in ("Lp", "Li", "Lx", "Up", "Ui", "Ux", "pivot_rows"):
+            assert np.array_equal(getattr(b1, k), getattr(b2, k)), k
+    b = np.random.default_rng(7).standard_normal(A.ncol)
+    for tr in (False, True):
+        assert np.array_equal(LU[dst].klu_solve(num2, b, transpose=tr),
+                              LU[src].klu_solve(num, b, transpose=tr))
+
+
 @pytest.mark.parametrize("src,dst", DIRECTIONS)
 @pytest.mark.parametrize("method", ["zstd", "zlib", "none"])
 def test_matrix_blob_crosses_between_packages(src, dst, method):
@@ -135,6 +237,13 @@ def test_wrong_kind_and_bad_blob_are_refused(tmp_path):
             utils.load_factor(tmp_path / "a.npz")
         with pytest.raises(err):
             utils.load_super_factor(tmp_path / "a.npz")
+        with pytest.raises(err):
+            utils.load_klu(tmp_path / "a.npz")
+        with pytest.raises(err):
+            utils.load_umf_symbolic(tmp_path / "a.npz")
+        with pytest.raises(err):
+            utils.load_umf_numeric(tmp_path / "a.npz", **(
+                {"device": "cpu"} if utils is port_utils else {}))
     with pytest.raises(PortError):
         port_utils.matrix_deserialize(
             len(b"{}").to_bytes(8, "little") + b"{}")
