@@ -19,12 +19,20 @@ counting.  Then the dispatch-floor probes (``scale_blocks`` and
 plain versions, and the probe tool's ``main()``), and the Cholesky front
 end on lap3d_44: ``spsolve_chol``, ``CholeskySolver`` refactorizations,
 the wave program and the bfloat16 SYRK option, each refined in float64.
-Last the LU family (``[lu]``, no kernel of the port on its path): the
+Then the LU family (``[lu]``, no kernel of the port on its path): the
 multifrontal LU (umf_symbolic, umf_numeric refactorizations, umf_solve
 with float64 refinement) on cd3d_44, a convection-diffusion operator
 built here, and on randunsym_5000; a singular case; and KLU on
 circuit_4000, on the host and through its device twin with a sweep of
-value sets.  Any failed check raises and the script exits nonzero;
+value sets.  Last the QR family (``[qr]``, no kernel of the port on its
+path either): the multifrontal QR (qr_symbolic, qr_factorize
+refactorizations, the least-squares solve through Q'b and the host R
+solve) on grad3d_32_tik, a Tikhonov-damped 3-D gradient built here, and
+on randunsym_5000, each against a float64 oracle; the keep_q paths
+(spqr_null, spqr_pinv, qr_min2norm, qr_qmult, qr_q) on grad3d_16; and the
+Factorize/backslash front door on an SPD, an unsymmetric, a rectangular
+and a symmetric indefinite matrix, block_chol counted for each.  Any
+failed check raises and the script exits nonzero;
 nothing is caught and carried on.  Without a CUDA device, or without the package beside
 it, it exits nonzero and prints no result.
 
@@ -94,6 +102,24 @@ LU_SEED = 7
 KLU_N = 4000
 KLU_SWEEP = 8
 KLU_RES_MAX = 1e-4             # float32 device solves
+# the [qr] phase: grad3d_QR_TIK_K_tik = [G; QR_TIK_MU I] and randunsym_5000
+# through qr_symbolic/qr_factorize/qr_rsolve, the keep_q paths on
+# grad3d_QR_Q_K (qr_q at grad3d_QR_QQ_K), and Factorize/backslash
+QR_TIK_K = 32
+QR_RU_N = 5000                 # bench_extra.py:122-127's fallback size
+QR_TIK_MU = 2.0
+QR_TIK_MAX = 1e-5              # cond 2: the float32 solution vs float64
+QR_RANDUNSYM_MAX = 1e-4        # kappa_1 4.39 (host estimate), PERF.md
+QR_KEEPQ_MAX = 1e-4            # grad3d_16 in float32 vs float64 (kappa 18)
+QR_Q_K = 16
+QR_QQ_K = 6
+QR_REPS = 5
+QR_SEED = 8
+FD_SPD_K = 32                  # 33 buckets: the pf program, block_chol
+FD_LU_K = 20
+FD_QR_K = 12
+FD_INDEF_K = 10
+FD_RES_MAX = 1e-5              # float32 factors, no refinement
 # kernel-name fragments of each device-time group in a profile
 GROUPS = (("block_chol", ("block_chol",)),
           ("getrf", ("getrf", "getf2", "laswp", "lu_unpack",
@@ -105,6 +131,14 @@ GROUPS = (("block_chol", ("block_chol",)),
           ("cat/copy", ("cat", "copy", "memcpy", "memset")),
           ("elementwise", ("elementwise", "vectorized", "unrolled")),
           ("reduce", ("reduce",)))
+# the same for a QR refactor (cuSOLVER/MAGMA geqrf and its helpers)
+QR_GROUPS = (("geqrf", ("geqr", "larfg", "larft", "larfb", "geqrf")),
+             ("orgqr/householder", ("orgqr", "ungqr", "orgtr", "larf")),
+             ("gemm", ("gemm", "gemv", "cutlass", "xmma", "cublas")),
+             ("index/scatter", ("index", "scatter", "gather", "put")),
+             ("cat/copy", ("cat", "copy", "memcpy", "memset", "fill")),
+             ("elementwise", ("elementwise", "vectorized", "unrolled")),
+             ("reduce", ("reduce",)))
 
 
 def log(msg: str) -> None:
@@ -340,9 +374,9 @@ def factor_shapes(pfp):
     return shapes
 
 
-def _group(name: str) -> str:
+def _group(name: str, groups=GROUPS) -> str:
     low = name.lower()
-    for g, keys in GROUPS:
+    for g, keys in groups:
         if any(k in low for k in keys):
             return g
     return "other"
@@ -359,7 +393,8 @@ def _busy_us(spans) -> float:
     return busy
 
 
-def profile_refactor(name, run, refactor_ms: float, outdir: str) -> dict:
+def profile_refactor(name, run, refactor_ms: float, outdir: str,
+                     groups=GROUPS) -> dict:
     """Profile one refactorization ``run()`` with torch.profiler and break
     its device time down by kernel group.  The profiler slows the host, so
     the idle share is taken against ``refactor_ms``, the median of the
@@ -378,11 +413,14 @@ def profile_refactor(name, run, refactor_ms: float, outdir: str) -> dict:
     check(kern, f"{name}: the profiler recorded no device kernels")
     by_group, by_name = {}, {}
     for e in kern:
-        g = _group(e["name"])
+        g = _group(e["name"], groups)
         by_group[g] = by_group.get(g, 0.0) + e["dur"]
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
     busy_ms = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in kern]) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    calls = {}
+    for e in kern:
+        calls[e["name"]] = calls.get(e["name"], 0) + 1
     return dict(matrix=name, refactor_median_ms=refactor_ms,
                 refactor_profiled_ms=wall * 1e3, device_busy_ms=busy_ms,
                 idle_share=1.0 - busy_ms / refactor_ms,
@@ -390,7 +428,9 @@ def profile_refactor(name, run, refactor_ms: float, outdir: str) -> dict:
                 kernels=len(kern), trace=path,
                 group_ms={g: v / 1e3 for g, v in sorted(
                     by_group.items(), key=lambda kv: -kv[1])},
-                top_ms=[(n[:90], v / 1e3) for n, v in top])
+                top_ms=[(n[:90], v / 1e3) for n, v in top],
+                top_calls=[(n[:90], c) for n, c in sorted(
+                    calls.items(), key=lambda kv: -kv[1])[:8]])
 
 
 def run_matrix(name: str, reps: int):
@@ -1488,6 +1528,335 @@ def run_lu() -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The QR family: multifrontal QR, spqr_rank, and the Factorize front door
+# ---------------------------------------------------------------------------
+
+def grad3d(k: int):
+    """The forward-difference gradient of the k^3 grid: the Kronecker sum
+    of (k-1) x k difference matrices, 3 (k-1) k^2 x k^3, rank k^3 - 1 (the
+    constants span its null space)."""
+    import scipy.sparse as sp
+    D = sp.diags([-np.ones(k - 1), np.ones(k - 1)], [0, 1], shape=(k - 1, k))
+    eye = sp.identity(k)
+    return sp.vstack([sp.kron(sp.kron(D, eye), eye),
+                      sp.kron(sp.kron(eye, D), eye),
+                      sp.kron(sp.kron(eye, eye), D)]).tocsc()
+
+
+def grad3d_tik(k: int, mu: float = QR_TIK_MU):
+    """Tikhonov-damped gradient [G; mu I]: full column rank, sigma_min =
+    mu, sigma_max = sqrt(12 + mu^2)."""
+    import scipy.sparse as sp
+    from suitesparse_tpu_torch.core.sparse import SparseCSC
+    G = grad3d(k)
+    return SparseCSC.from_scipy(sp.vstack(
+        [G, mu * sp.identity(G.shape[1])]).tocsc())
+
+
+def qr_plan_stats(S) -> dict:
+    """Levels, buckets, buffer sizes, the largest bucket workspace, the
+    root front and the padded flops of a QRSymbolic."""
+    buckets = [bq for lv in S.levels for bq in lv]
+
+    def flops(FR, FC):            # Householder QR of an FR x FC front
+        return (2.0 * FC * FC * (FR - FC / 3.0) if FR >= FC
+                else 2.0 * FR * FR * (FC - FR / 3.0))
+    root = max(buckets, key=lambda bq: bq.FR * bq.FC)
+    return dict(levels=len(S.levels), buckets=len(buckets),
+                total_R=int(S.total_R), total_C=int(S.total_C),
+                max_workspace=max(len(bq.sids) * bq.FR * bq.FC
+                                  for bq in buckets),
+                largest_front=[int(root.FR), int(root.FC)],
+                padded_flops=sum(len(bq.sids) * flops(bq.FR, bq.FC)
+                                 for bq in buckets))
+
+
+def ls_backward(A, x, b) -> float:
+    """||A^T r||_inf / (||A||_1 ||r||_inf), r = b - A x: the least-squares
+    optimality of x."""
+    S = A.to_scipy()
+    r = b - S @ x
+    return float(np.abs(S.T @ r).max()
+                 / max(A.norm(1) * np.abs(r).max(), 1e-300))
+
+
+def run_qr_cell(name, A, oracle, limit) -> dict:
+    """qr_symbolic, a first qr_factorize on the card, QR_REPS refactors
+    (bit-identical R), one profiled, then the least-squares solve split
+    into the factorization with Q'b (twice: bit-identical R and Q'b) and
+    the host R solve; rank and tol beside the float64 host factor's; the
+    solution within ``limit`` of the float64 ``oracle``."""
+    import torch
+    from suitesparse_tpu_torch.cholesky import residual_norm
+    from suitesparse_tpu_torch.core.common import default_common
+    from suitesparse_tpu_torch.qr import (qr_factorize, qr_rsolve,
+                                          qr_symbolic, r_diagonal)
+    m, n = A.shape
+    cm = default_common()
+    t0 = time.perf_counter()
+    S = qr_symbolic(A, cm)
+    t_sym = time.perf_counter() - t0
+    stats = qr_plan_stats(S)
+    log(f"[qr] {name} m={m} n={n} nnz={A.nnz} qr_symbolic {t_sym:.2f} s "
+        f"{json.dumps(stats)}")
+    torch.cuda.reset_peak_memory_stats()
+    t_first, num = host_time(lambda: qr_factorize(A, S, common=cm))
+    check(num.Rbuf.device.type == "cuda", f"{name}: R on {num.Rbuf.device}")
+    t_ref = []
+    for _ in range(QR_REPS):
+        t, again = host_time(lambda: qr_factorize(A, S, common=cm))
+        t_ref.append(t)
+        check(torch.equal(num.Rbuf, again.Rbuf),
+              f"{name}: refactorizations are not bit-identical")
+        del again
+    t_med = float(np.median(t_ref))
+    prof = profile_refactor(f"qr_{name}",
+                            lambda: qr_factorize(A, S, common=cm),
+                            t_med * 1e3, PROFILE_DIR, groups=QR_GROUPS)
+    log("[profile] " + json.dumps(prof))
+    b = np.random.default_rng(QR_SEED).standard_normal(m)
+    t_fb, nb = host_time(lambda: qr_factorize(A, S, b=b))
+    t_fb2, nb2 = host_time(lambda: qr_factorize(A, S, b=b))
+    check(torch.equal(nb.Rbuf, nb2.Rbuf) and np.array_equal(nb.qtb, nb2.qtb),
+          f"{name}: factorizations with Q'b are not bit-identical")
+    check(torch.equal(nb.Rbuf, num.Rbuf),
+          f"{name}: R with Q'b differs from R without (mode 'r')")
+    del nb2
+    prof_b = profile_refactor(f"qr_{name}_qtb",
+                              lambda: qr_factorize(A, S, b=b),
+                              t_fb2 * 1e3, PROFILE_DIR, groups=QR_GROUPS)
+    log("[profile] " + json.dumps(prof_b))
+    t_rs, xq = host_time(lambda: qr_rsolve(nb, nb.qtb[:, 0]))
+    x = np.empty_like(xq)
+    x[S.sym.perm] = xq
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(tuple(x.shape) == (n,) and bool(np.isfinite(x).all()),
+          f"{name}: solution shape/finiteness")
+    # the float64 host factor: its rank under the same formula, and R's
+    # diagonal against the card's up to sign
+    t_h, nh = host_time(lambda: qr_factorize(A, S, device="cpu"))
+    dg, dh = np.abs(r_diagonal(S, num.Rbuf)), np.abs(r_diagonal(S, nh.Rbuf))
+    diag_rel = float(np.abs(dg - dh).max() / dh.max())
+    host_rank, host_tol = nh.rank, nh.tol
+    del nh
+    t_o, xo = host_time(oracle)
+    err = float(np.abs(x - xo).max() / np.abs(xo).max())
+    # least-squares optimality for m > n; the residual for a square A
+    quality = (dict(ls_backward=ls_backward(A, x, b)) if m > n
+               else dict(residual=residual_norm(A, x, b)))
+    check(num.rank == nb.rank == host_rank == min(m, n),
+          f"{name}: rank {num.rank} (tol {num.tol:.3e}), float64 host "
+          f"{host_rank} (tol {host_tol:.3e}), want {min(m, n)}")
+    check(err <= limit, f"{name}: {err:.3e} from the float64 oracle > "
+          f"{limit}")
+    return dict(matrix=name, m=m, n=n, nnz=int(A.nnz), **stats,
+                qr_symbolic_s=t_sym, first_factorize_s=t_first,
+                refactor_ms=t_med * 1e3,
+                refactor_ms_all=[t * 1e3 for t in t_ref],
+                bit_identical_refactor=True,
+                device_busy_ms=prof["device_busy_ms"],
+                idle_share=prof["idle_share"], kernels=prof["kernels"],
+                group_ms=prof["group_ms"],
+                factor_with_qtb_s=[t_fb, t_fb2], host_rsolve_s=t_rs,
+                qtb_device_busy_ms=prof_b["device_busy_ms"],
+                qtb_kernels=prof_b["kernels"], qtb_group_ms=prof_b["group_ms"],
+                peak_mem_gib=peak, rank=num.rank, tol=num.tol,
+                host_f64_rank=host_rank, host_f64_tol=host_tol,
+                host_f64_factor_s=t_h, min_abs_diag=float(dg.min()),
+                diag_vs_f64_rel=diag_rel, **quality,
+                oracle_s=t_o, vs_oracle_rel=err, limit=limit)
+
+
+def qr_cells():
+    """The [qr] phase's least-squares cells: (name, A, float64 oracle of
+    the solution for QR_SEED's b, limit)."""
+    import scipy.sparse.linalg as sla
+    from suitesparse_tpu_torch.io.generators import random_unsym
+
+    def lsq_oracle(A):
+        S = A.to_scipy().tocsc()
+        b = np.random.default_rng(QR_SEED).standard_normal(S.shape[0])
+        return lambda: sla.spsolve((S.T @ S).tocsc(), S.T @ b)
+
+    def square_oracle(A):
+        S = A.to_scipy().tocsc()
+        b = np.random.default_rng(QR_SEED).standard_normal(S.shape[0])
+        return lambda: sla.spsolve(S, b)
+
+    tik = grad3d_tik(QR_TIK_K)
+    ru = random_unsym(QR_RU_N, density=0.008)
+    return ((f"grad3d_{QR_TIK_K}_tik", tik, lsq_oracle(tik), QR_TIK_MAX),
+            (f"randunsym_{QR_RU_N}", ru, square_oracle(ru), QR_RANDUNSYM_MAX))
+
+
+def run_qr_keep_q() -> dict:
+    """The keep_q paths on grad3d_QR_Q_K's gradient G (rank n - 1):
+    spqr_null(G) is the constants' direction, spqr_pinv(G) b and
+    qr_min2norm(G^T) c match numpy.linalg.pinv in float64, qr_qmult's four
+    methods are an isometry that reproduces R's columns; and qr_q's
+    explicit Q at grad3d_QR_QQ_K."""
+    from suitesparse_tpu_torch.core.common import default_common
+    from suitesparse_tpu_torch.core.sparse import SparseCSC
+    from suitesparse_tpu_torch.models import spqr_null, spqr_pinv, spqr_rank
+    from suitesparse_tpu_torch.qr.spqr import _r_matrix
+    from suitesparse_tpu_torch.qr import (qr_factorize, qr_min2norm, qr_q,
+                                          qr_qmult, qr_symbolic)
+    import scipy.sparse as sp
+    rng = np.random.default_rng(QR_SEED)
+    Gs = grad3d(QR_Q_K)
+    m, n = Gs.shape
+    G = SparseCSC.from_scipy(Gs)
+    Gt = SparseCSC.from_scipy(sp.csc_matrix(Gs.T))
+    out = dict(matrix=f"grad3d_{QR_Q_K}", m=m, n=n)
+
+    t, N = host_time(lambda: spqr_null(G))
+    dev = float(np.abs(np.abs(N) - 1 / np.sqrt(n)).max()) if N.size else 1.0
+    check(N.shape == (n, 1) and dev <= QR_KEEPQ_MAX,
+          f"spqr_null(G): shape {N.shape}, ||N| - 1/sqrt(n)| {dev:.3e}")
+    out.update(spqr_null_s=t, null_cols=int(N.shape[1]),
+               null_vs_constants=dev,
+               null_GN=float(np.abs(Gs @ N).max()))
+    t, r = host_time(lambda: spqr_rank(G))
+    check(r == n - 1, f"spqr_rank(G) = {r}, want {n - 1}")
+    out.update(spqr_rank_s=t, rank=r)
+
+    t_p, P = host_time(lambda: np.linalg.pinv(Gs.toarray()))
+    b = rng.standard_normal(m)
+    t, x = host_time(lambda: spqr_pinv(G, b))
+    xr = P @ b
+    e_pinv = float(np.abs(x - xr).max() / np.abs(xr).max())
+    check(e_pinv <= QR_KEEPQ_MAX, f"spqr_pinv(G) vs pinv {e_pinv:.3e}")
+    c = rng.standard_normal(n)
+    c -= c.mean()                      # in the range of G^T
+    t2, y = host_time(lambda: qr_min2norm(Gt, c))
+    yr = P.T @ c
+    e_mn = float(np.abs(y - yr).max() / np.abs(yr).max())
+    check(e_mn <= QR_KEEPQ_MAX, f"qr_min2norm(G^T) vs pinv {e_mn:.3e}")
+    del P
+    out.update(numpy_pinv_s=t_p, spqr_pinv_s=t, pinv_vs_numpy_rel=e_pinv,
+               min2norm_s=t2, min2norm_vs_numpy_rel=e_mn)
+
+    cm = default_common()
+    S = qr_symbolic(G, cm)
+    t, num = host_time(lambda: qr_factorize(G, S, common=cm, keep_q=True))
+    q_entries = sum(q.size for lv in num.Qs for q in lv)
+    X = rng.standard_normal((m, 4))
+    t_q, Y = host_time(lambda: qr_qmult(num, X, "QTX"))
+    iso = float(np.abs(np.linalg.norm(Y, axis=0)
+                       / np.linalg.norm(X, axis=0) - 1).max())
+    back = float(np.abs(qr_qmult(num, Y, "QX") - X).max() / np.abs(X).max())
+    X2 = rng.standard_normal((4, m))
+    back2 = float(np.abs(qr_qmult(num, qr_qmult(num, X2, "XQ"), "XQT") - X2)
+                  .max() / np.abs(X2).max())
+    cols = np.sort(rng.choice(n, 16, replace=False))
+    Ap = Gs[:, S.sym.perm][:, cols].toarray()
+    QtA = qr_qmult(num, Ap, "QTX")
+    R = _r_matrix(num)[:, cols].toarray()
+    rep = float(max(np.abs(QtA[:n] - R).max(), np.abs(QtA[n:]).max())
+                / np.abs(R).max())
+    for what, v in (("isometry", iso), ("QX(QTX)", back),
+                    ("XQT(XQ)", back2), ("Q'A = R", rep)):
+        check(v <= QR_KEEPQ_MAX, f"qr_qmult {what}: {v:.3e}")
+    out.update(keep_q_factorize_s=t, keep_q_entries=int(q_entries),
+               qmult_qtx_s=t_q, qmult_isometry=iso, qmult_inverse=back,
+               qmult_xq_inverse=back2, qmult_reproduces_r=rep)
+    del num
+
+    Gq = SparseCSC.from_scipy(grad3d(QR_QQ_K))
+    Sq = qr_symbolic(Gq)
+    nq = qr_factorize(Gq, Sq, keep_q=True)
+    Q = qr_q(nq, econ=True)
+    Aq = grad3d(QR_QQ_K)[:, Sq.sym.perm].toarray()
+    Rq = _r_matrix(nq).toarray()
+    e_q = float(np.abs(Q @ Rq - Aq).max() / np.abs(Aq).max())
+    e_o = float(np.abs(Q.T @ Q - np.eye(Q.shape[1])).max())
+    check(e_q <= QR_KEEPQ_MAX and e_o <= QR_KEEPQ_MAX,
+          f"qr_q at grad3d_{QR_QQ_K}: QR - A {e_q:.3e}, Q'Q - I {e_o:.3e}")
+    out.update(qr_q_matrix=f"grad3d_{QR_QQ_K}", qr_q_shape=list(Q.shape),
+               qr_q_vs_A=e_q, qr_q_orthonormal=e_o, limit=QR_KEEPQ_MAX)
+    return out
+
+
+def run_front_door(block_chol) -> dict:
+    """Factorize / backslash on an SPD, an unsymmetric, a rectangular and
+    a symmetric indefinite matrix: the kind each picks, block_chol's
+    launches for each (the SPD one through the pf program, the others
+    none), and each solution's residual (least-squares optimality for the
+    rectangular one)."""
+    from suitesparse_tpu_torch.cholesky import residual_norm
+    from suitesparse_tpu_torch.core.common import default_common
+    from suitesparse_tpu_torch.core.sparse import symmetry
+    from suitesparse_tpu_torch.io.generators import laplacian_3d
+    from suitesparse_tpu_torch.models import Factorize, backslash
+    from suitesparse_tpu_torch.core.sparse import SparseCSC
+    import scipy.sparse as sp
+    L = laplacian_3d(FD_INDEF_K).to_scipy()
+    indef = SparseCSC.from_scipy((L - 3.0 * sp.identity(L.shape[0])).tocsc())
+    cases = ((f"lap3d_{FD_SPD_K}", laplacian_3d(FD_SPD_K), "cholesky"),
+             (f"cd3d_{FD_LU_K}", cd3d(FD_LU_K), "lu"),
+             (f"grad3d_{FD_QR_K}_tik", grad3d_tik(FD_QR_K), "qr"),
+             (f"lap3d_{FD_INDEF_K}_minus_3I", indef, "lu"))
+    rows = []
+    for name, A, want in cases:
+        b = np.random.default_rng(QR_SEED).standard_normal(A.nrow)
+        cm = default_common()
+        block_chol.launches = 0        # this matrix's count starts here
+        t_f, F = host_time(lambda: Factorize(A, cm))
+        t_s, x = host_time(lambda: F.solve(b))
+        launches = block_chol.launches
+        check(F.kind == want, f"Factorize({name}) picked {F.kind}, want "
+              f"{want}")
+        if want == "cholesky":
+            check(launches > 0, f"Factorize({name}) never launched "
+                  f"block_chol")
+        else:
+            check(launches == 0, f"Factorize({name}) launched block_chol "
+                  f"{launches} times")
+        if name.endswith("minus_3I"):
+            # symmetric with a positive diagonal: the front door tried
+            # Cholesky first, and only its not-positive-definite outcome
+            # falls through to LU (any other error would have propagated)
+            check(symmetry(A) == (1.0, A.ncol) and Factorize._hermitian(A)
+                  and Factorize._diag_positive(A),
+                  f"{name}: not a Cholesky guess")
+        res = (ls_backward(A, x, b) if want == "qr"
+               else residual_norm(A, x, b))
+        check(bool(np.isfinite(x).all()) and res <= FD_RES_MAX,
+              f"Factorize({name}) residual {res:.3e} > {FD_RES_MAX}")
+        t_b, xb = host_time(lambda: backslash(A, b))
+        same = float(np.abs(xb - x).max() / np.abs(x).max())
+        check(same <= FD_RES_MAX, f"backslash({name}) vs Factorize {same}")
+        rows.append(dict(matrix=name, n=A.ncol, m=A.nrow, kind=F.kind,
+                         factorize_s=t_f, solve_s=t_s, backslash_s=t_b,
+                         block_chol_launches=launches, residual=res))
+    return rows
+
+
+def run_qr(probes) -> dict:
+    """The [qr] phase: the least-squares cells and the keep_q paths, with
+    the counts of the port's four kernels read (none lies on the QR path),
+    then the Factorize front door with block_chol counted per matrix."""
+    out = dict(cells=[])
+    for k in probes:
+        k.launches = 0                 # the QR path's count starts here
+    for name, A, oracle, limit in qr_cells():
+        row = run_qr_cell(name, A, oracle, limit)
+        log(f"[qr] {json.dumps(row)}")
+        out["cells"].append(row)
+        del A
+    out["keep_q"] = run_qr_keep_q()
+    log(f"[qr] {json.dumps(out['keep_q'])}")
+    qr_launches = {k.__name__: k.launches for k in probes}
+    log(f"[main] kernel launches on the QR path: {json.dumps(qr_launches)}")
+    check(not any(qr_launches.values()),
+          f"a kernel of the port ran on the QR path: {qr_launches}")
+    out["front_door"] = run_front_door(probes[0])
+    for row in out["front_door"]:
+        log(f"[qr] front door {json.dumps(row)}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1580,6 +1949,12 @@ def main() -> int:
     check(not any(lu_launches.values()),
           f"a kernel of the port ran on the LU path: {lu_launches}")
     log(f"[time] lu phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # the QR family: no kernel of the port lies on the QR path (the
+    # reference's QR is jnp.linalg.qr per bucket); the Factorize front
+    # door's SPD branch runs block_chol
+    run_qr(probes)
+    log(f"[time] qr phase done at {time.perf_counter() - t_start:.1f} s")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": [kline, bline] + dlines}), flush=True)

@@ -1,1 +1,3 @@
-from . import generators
+from .matrixmarket import mmread, mmwrite, mmread_dense
+from .rbio import rbread, rbwrite, rbkind
+from . import collection, generators

@@ -399,3 +399,80 @@ def test_klu_device_on_card_matches_cpu():
     j = int(sym.q[0])
     zero[A.indptr[j]:A.indptr[j + 1]] = 0.0
     assert not bool(rg(zero)[2])
+
+
+def _qr_tall(m, n, seed, complex_=False):
+    import scipy.sparse as sp
+    from suitesparse_tpu_torch.core.sparse import SparseCSC
+    rng = np.random.default_rng(seed)
+    S = sp.random(m, n, density=0.05, random_state=rng, format="csc")
+    S = S + sp.csc_matrix((np.ones(n) * 0.5,
+                           (rng.integers(0, m, n), np.arange(n))),
+                          shape=(m, n))
+    if complex_:
+        S = S + 1j * sp.random(m, n, density=0.02, random_state=rng)
+    return SparseCSC.from_scipy(sp.csc_matrix(S))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("complex_", [False, True])
+def test_qr_on_card_matches_cpu(complex_):
+    """qr_factorize / qr_solve on the card (float32 / complex64) against
+    the port's own CPU float64 run on a small tall matrix: solutions and
+    |diag R| within 1e-5, the same rank; refactors bit-identical (R and
+    Q'b), and R without b equal to R with b (mode "r" vs "reduced")."""
+    _need_card()
+    from suitesparse_tpu_torch.qr import (qr_factorize, qr_qmult, qr_solve,
+                                          qr_symbolic, r_diagonal)
+    A = _qr_tall(600, 300, 11, complex_)
+    S = qr_symbolic(A)
+    rng = np.random.default_rng(12)
+    b = rng.standard_normal(600)
+    g = qr_factorize(A, S, b=b)
+    assert g.Rbuf.device.type == "cuda"
+    assert g.Rbuf.dtype == (torch.complex64 if complex_ else torch.float32)
+    again = qr_factorize(A, S, b=b)
+    assert torch.equal(g.Rbuf, again.Rbuf)
+    assert np.array_equal(g.qtb, again.qtb)
+    assert torch.equal(qr_factorize(A, S).Rbuf, g.Rbuf)
+    c = qr_factorize(A, S, b=b, device="cpu")
+    assert g.rank == c.rank == 300
+    dg = np.abs(r_diagonal(S, g.Rbuf))
+    dc = np.abs(r_diagonal(S, c.Rbuf))
+    assert np.abs(dg - dc).max() <= 1e-5 * dc.max()
+    xg = qr_solve(A, b)
+    xc = qr_solve(A, b, device="cpu")
+    assert np.abs(xg - xc).max() <= 1e-5 * np.abs(xc).max()
+    k = qr_factorize(A, S, keep_q=True)
+    X = rng.standard_normal((600, 3))
+    Y = qr_qmult(k, X, "QTX")
+    assert np.abs(qr_qmult(k, Y, "QX") - X).max() <= 1e-5 * np.abs(X).max()
+
+
+@pytest.mark.gpu
+def test_factorize_raises_when_block_chol_launch_fails(monkeypatch):
+    """With block_chol's launch forced to fail, backslash on an SPD matrix
+    raises instead of returning an LU solution; unpatched, the same call
+    launches block_chol and solves."""
+    _need_card()
+    from suitesparse_tpu_torch.models import Factorize, backslash
+    from suitesparse_tpu_torch.utils import cuda_build
+    A = laplacian_3d(8)
+    b = np.ones(A.ncol)
+
+    def common():
+        cm = default_common()
+        cm.cholesky.program = "pf"          # the program that runs block_chol
+        return cm
+
+    before = kernels.block_chol.launches
+    F = Factorize(A, common())
+    assert F.kind == "cholesky" and kernels.block_chol.launches > before
+    assert residual_norm(A, F.solve(b), b) <= 1e-5
+
+    def fail(*args, **kw):
+        raise RuntimeError("forced launch failure")
+
+    monkeypatch.setattr(cuda_build, "launch", fail)
+    with pytest.raises(RuntimeError, match="forced launch failure"):
+        backslash(A, b, common())

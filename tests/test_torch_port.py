@@ -38,7 +38,12 @@ import suitesparse_tpu_torch.lu.multifrontal
 import suitesparse_tpu_torch.lu.report
 import suitesparse_tpu_torch.lu.slip
 import suitesparse_tpu_torch.ordering.colamd
+import suitesparse_tpu_torch.io
+import suitesparse_tpu_torch.io.collection
+import suitesparse_tpu_torch.io.fixtures
 import suitesparse_tpu_torch.io.generators
+import suitesparse_tpu_torch.io.matrixmarket
+import suitesparse_tpu_torch.io.rbio
 import suitesparse_tpu_torch.utils.cuda_build
 import suitesparse_tpu_torch.ops
 import suitesparse_tpu_torch.ops.host
@@ -50,9 +55,15 @@ import suitesparse_tpu_torch.graphblas.core
 import suitesparse_tpu_torch.graphblas.extra
 import suitesparse_tpu_torch.graphblas.objects
 import suitesparse_tpu_torch.models
+import suitesparse_tpu_torch.models.csparse
+import suitesparse_tpu_torch.models.factorize
 import suitesparse_tpu_torch.models.ldl
+import suitesparse_tpu_torch.models.meshnd
 import suitesparse_tpu_torch.models.sparseinv
+import suitesparse_tpu_torch.models.spqr_rank
 import suitesparse_tpu_torch.models.ssmult
+import suitesparse_tpu_torch.qr
+import suitesparse_tpu_torch.qr.spqr
 import suitesparse_tpu_torch.tools
 import suitesparse_tpu_torch.tools.bench_bcsr
 import suitesparse_tpu_torch.tools.klu_host
@@ -208,6 +219,55 @@ def test_lu_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     b = np.ones(A.ncol)
     assert np.abs(A.to_scipy() @ lu.klu_solve(num, b) - b).max() < 1e-12
     assert btf_order(A).nblocks >= 1 and len(colamd(A)) == A.ncol
+
+
+def test_qr_and_front_door_entry_points_raise_without_a_card(monkeypatch):
+    """qr_factorize, qr_solve, the spqr_* utilities, Factorize(...).solve,
+    backslash and the CSparse QR/Cholesky solves run on the card when no
+    device is given, and raise without one; with device="cpu" they run
+    here (float64)."""
+    import scipy.sparse as sp
+    from suitesparse_tpu_torch import models, qr
+    from suitesparse_tpu_torch.core.sparse import SparseCSC
+    from suitesparse_tpu_torch.models import csparse
+    rng = np.random.default_rng(0)
+    T = sp.random(40, 25, 0.2, random_state=rng, format="csc") + \
+        sp.vstack([sp.identity(25), sp.csc_matrix((15, 25))])
+    A = SparseCSC.from_scipy(sp.csc_matrix(T))
+    S = qr.qr_symbolic(A)
+    spd = laplacian_3d(4)
+    b = np.ones(40)
+    num = qr.qr_factorize(A, S, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: qr.qr_factorize(A, S),
+        lambda: qr.qr_factorize(A, S, b=b, keep_q=True),
+        lambda: qr.qr_solve(A, b),
+        lambda: qr.qr_min2norm(A.transpose(), np.ones(25)),
+        lambda: qr.qr_numeric_from_numpy(S, num.Rbuf.numpy(), num.qtb,
+                                         num.rank, num.tol),
+        lambda: models.spqr_basic(A, b),
+        lambda: models.spqr_null(A),
+        lambda: models.spqr_pinv(A, b),
+        lambda: models.spqr_rank(A),
+        lambda: models.Factorize(spd).solve(np.ones(spd.ncol)),
+        lambda: models.Factorize(A).solve(b),
+        lambda: models.backslash(spd, np.ones(spd.ncol)),
+        lambda: models.backslash(A, b),
+        lambda: csparse.cs_qrsol(A, b),
+        lambda: csparse.cs_qr(A),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    x = models.backslash(A, b, device="cpu")
+    ref = np.linalg.lstsq(T.toarray(), b, rcond=None)[0]
+    assert np.abs(x - ref).max() < 1e-10
+    F = models.Factorize(spd, device="cpu")
+    assert F.kind == "cholesky"
+    assert np.abs(spd.to_scipy() @ F.solve(np.ones(spd.ncol)) - 1).max() \
+        < 1e-10
+    assert num.Rbuf.dtype == torch.float64
 
 
 def test_cpu_defaults_to_float64_and_dtype_is_honoured():
