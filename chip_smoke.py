@@ -24,15 +24,27 @@ multifrontal LU (umf_symbolic, umf_numeric refactorizations, umf_solve
 with float64 refinement) on cd3d_44, a convection-diffusion operator
 built here, and on randunsym_5000; a singular case; and KLU on
 circuit_4000, on the host and through its device twin with a sweep of
-value sets.  Last the QR family (``[qr]``, no kernel of the port on its
+value sets.  Then the QR family (``[qr]``, no kernel of the port on its
 path either): the multifrontal QR (qr_symbolic, qr_factorize
 refactorizations, the least-squares solve through Q'b and the host R
 solve) on grad3d_32_tik, a Tikhonov-damped 3-D gradient built here, and
 on randunsym_5000, each against a float64 oracle; the keep_q paths
 (spqr_null, spqr_pinv, qr_min2norm, qr_qmult, qr_q) on grad3d_16; and the
 Factorize/backslash front door on an SPD, an unsymmetric, a rectangular
-and a symmetric indefinite matrix, block_chol counted for each.  Any
-failed check raises and the script exits nonzero;
+and a symmetric indefinite matrix, block_chol counted for each.  Last
+the distributed layer (``[dist]``, no kernel of the port on its path):
+rank processes of ``suitesparse_tpu_torch/tools/multihost_dryrun.py``
+that share this card, over gloo through a ``file://`` store under
+``build/dist``: lap3d_44 at 4 ranks (the plan digest agreed by every rank,
+5 bit-identical refactorizations, the gathered factor against the
+single-process wave program, the distributed solve refined in float64,
+the collectives of a factor and of a solve counted against the plan's,
+bytes and per-phase times per rank, peak memory) and a block-cyclic
+Cholesky of a dense 4096^2 SPD matrix; lap3d_28 at 2 ranks, lap3d_10 - 3I
+(NOT_POSDEF with the single-process minor) and one lap3d_16 bucket
+through the legacy level step; lap3d_16 at one rank over NCCL.  The P
+ranks take turns on one card, so their times measure correctness, memory
+and the cost of each phase, not scaling.  Any failed check raises and the script exits nonzero;
 nothing is caught and carried on.  Without a CUDA device, or without the package beside
 it, it exits nonzero and prints no result.
 
@@ -81,9 +93,10 @@ DISPATCH_G = (64, 256)        # grid sizes of the dispatch-floor probes
 # persistent grid, and grids smaller than the SM count
 DISPATCH_CHECK_G = (1, 3, 64, 131, 256, 257)
 # block_chol timing: launches a timed run, and the spin that holds the
-# stream while the host enqueues them (~10 ms at the H100's ~2 GHz)
+# stream while the host enqueues them (~25 ms at the H100's ~2 GHz; a slow
+# host has taken 11.2 ms to enqueue the 50 launches)
 QUEUED_REPS = 50
-HOLD_CYCLES = 20_000_000
+HOLD_CYCLES = 50_000_000
 BUSY_TRACE_S = 0.05            # least host time a busy-time trace spans
 FRONT_MATRIX = "lap3d_44"
 REFINE_STEPS = 3
@@ -120,6 +133,23 @@ FD_LU_K = 20
 FD_QR_K = 12
 FD_INDEF_K = 10
 FD_RES_MAX = 1e-5              # float32 factors, no refinement
+# the [dist] phase: ranks of suitesparse_tpu_torch/tools/multihost_dryrun.py
+# sharing cuda:0 over gloo (a file:// store under build/dist), one over
+# NCCL: lap3d_DIST_K at DIST_P ranks, lap3d_DIST_P2_K at 2, lap3d_DIST_NCCL_K
+# at 1, lap3d_DIST_INDEF_K - 3I, one lap3d_DIST_LEVEL_K bucket, and a dense
+# DIST_BC_N^2 SPD matrix block-cyclic at DIST_P ranks
+DIST_K = 44
+DIST_P = 4
+DIST_P2_K = 28
+DIST_NCCL_K = 16
+DIST_INDEF_K = 10
+DIST_LEVEL_K = 16
+DIST_BC_N = 4096
+DIST_BC_NB = 128
+DIST_GATHER_MAX = 1e-5         # float32 gather() vs the single-process wave
+DIST_BC_MAX = 1e-5             # float32 block-cyclic vs float64 host
+DIST_TIMEOUT = 600
+DIST_SEED = 11
 # kernel-name fragments of each device-time group in a profile
 GROUPS = (("block_chol", ("block_chol",)),
           ("getrf", ("getrf", "getf2", "laswp", "lu_unpack",
@@ -1279,7 +1309,7 @@ def run_front():
                 wave_waves=int(len(wp.instr_cls)),
                 wave_vs_pf_rel=d_wave, wave_residuals=res_wave,
                 bf16_factor_s=t_b, bf16_vs_f32_rel=d_bf16,
-                bf16_residuals=res_bf16)
+                bf16_residuals=res_bf16, flops=float(solver.sym.flops))
 
 
 # ---------------------------------------------------------------------------
@@ -1857,6 +1887,136 @@ def run_qr(probes) -> dict:
     return out
 
 
+def dist_check(name, res) -> dict:
+    """Checks of one ``dist`` case over every rank's result, and the row
+    the [dist] line prints: per rank lbuf, peak memory and the median
+    phase times of the refactorizations; bytes a rank per phase; the
+    collectives of one factor and of one solve."""
+    rows = [r[name] for r in res]
+    r0 = rows[0]
+    n = r0["n"]
+    for r in rows:
+        check(r["status"] == 0 and r["minor"] == n,
+              f"[dist] {name} rank {r['rank']}: status {r['status']} "
+              f"minor {r['minor']}")
+        check(r["residuals"][-1] <= RESIDUAL_MAX,
+              f"[dist] {name} rank {r['rank']} residuals {r['residuals']}")
+        check(r["factor_bytes"].get("boundary", 0)
+              == r["info_bytes"]["dist_psum_bytes"],
+              f"[dist] {name}: boundary bytes {r['factor_bytes']} vs "
+              f"dist_psum_bytes {r['info_bytes']['dist_psum_bytes']}")
+    check(r0["gather_vs_wave_rel"] <= DIST_GATHER_MAX,
+          f"[dist] {name}: gather() vs wave_numeric "
+          f"{r0['gather_vs_wave_rel']:.3e} > {DIST_GATHER_MAX}")
+    med = {k.replace("dist_", "").replace("_time", "_ms"):
+           [float(np.median(r["refactor_times_s"][k])) * 1e3 for r in rows]
+           for k in r0["refactor_times_s"]}
+    return dict(
+        matrix=name, n=n, ranks=len(rows), backend=res[0]["backend"],
+        plan_s=[r["plan_s"] for r in rows],
+        first_factor_s=r0["first_factor_s"], refactors=len(
+            r0["refactor_times_s"]["dist_factor_time"]),
+        refactor_median_ms=med, lbuf=r0["lbuf"],
+        max_memory_allocated=[r.get("max_memory_allocated") for r in rows],
+        factor_collectives=r0["expected_factor_counts"],
+        solve_collectives=r0["solve_counts"],
+        bytes_per_rank=r0["factor_bytes"], solve_bytes=r0["solve_bytes"],
+        info_bytes=r0["info_bytes"],
+        solve_ms=[round(t * 1e3, 3) for t in r0["solve_s"]],
+        residuals=r0["residuals"], gather_vs_wave_rel=r0["gather_vs_wave_rel"],
+        top_fan=len(r0["top_fan"]), root=r0["root"],
+        seq_slots=r0["seq_slots"],
+        model_speedup=r0["comm"]["dist_model_speedup"],
+        model_speedup_disp=r0["comm"].get("dist_model_speedup_disp"),
+        pad_ratio=r0["comm"]["dist_pad_ratio"])
+
+
+def run_dist(probes, front) -> dict:
+    """The [dist] phase: the distributed layer's ranks on this one card
+    (P processes over gloo, one over NCCL), each checked by its ranks and
+    here; the counts of the port's four kernels over every rank (none lies
+    on the distributed path).  The timeline model's constants are this
+    card's: lap3d_44's flops over its wave-program refactor median, and
+    that median over its wave count (the [front] phase)."""
+    from suitesparse_tpu_torch.tools.multihost_dryrun import launch
+    for k in probes:
+        k.launches = 0                 # the distributed path's count
+    wave_s = front["wave_refactor_ms"] * 1e-3
+    model = [front["flops"] / wave_s, wave_s / front["wave_waves"]]
+    work = os.path.join(ROOT, "build", "dist")
+    out = {}
+    lap = f"lap3d_{DIST_K}"
+    job = dict(backend="gloo", device="cuda", cases=[
+        dict(kind="dist", name=lap, gen="laplacian_3d", arg=DIST_K,
+             dtype="float32", reps=REFACTOR_REPS, refine=REFINE_STEPS,
+             check_wave=True, seed=DIST_SEED, model=model),
+        dict(kind="block_cyclic", N=DIST_BC_N, nb=DIST_BC_NB, seed=DIST_SEED,
+             dtype="float32", on_device=True)])
+    t0 = time.perf_counter()
+    res4 = launch(DIST_P, job, os.path.join(work, f"p{DIST_P}"),
+                  DIST_TIMEOUT)
+    out[lap] = dist_check(lap, res4)
+    out[lap]["launch_s"] = time.perf_counter() - t0
+    log(f"[dist] {json.dumps(out[lap])}")
+    bc = res4[0]["block_cyclic"]
+    check(bc["vs_float64_rel"] <= DIST_BC_MAX,
+          f"[dist] block_cyclic {bc['vs_float64_rel']:.3e} > {DIST_BC_MAX}")
+    bc["seconds_all_ranks"] = [r["block_cyclic"]["seconds"] for r in res4]
+    out["block_cyclic"] = bc
+    log(f"[dist] block_cyclic_cholesky {json.dumps(bc)}")
+
+    lap2 = f"lap3d_{DIST_P2_K}"
+    job = dict(backend="gloo", device="cuda", cases=[
+        dict(kind="dist", name=lap2, gen="laplacian_3d", arg=DIST_P2_K,
+             dtype="float32", reps=REFACTOR_REPS, refine=REFINE_STEPS,
+             check_wave=True, seed=DIST_SEED),
+        dict(kind="notposdef", gen="laplacian_3d", arg=DIST_INDEF_K,
+             shift=-3.0, dtype="float32", single=True),
+        dict(kind="level_step", gen="laplacian_3d", arg=DIST_LEVEL_K,
+             dtype="float32")])
+    t0 = time.perf_counter()
+    res2 = launch(2, job, os.path.join(work, "p2"), DIST_TIMEOUT)
+    out[lap2] = dist_check(lap2, res2)
+    out[lap2]["launch_s"] = time.perf_counter() - t0
+    log(f"[dist] {json.dumps(out[lap2])}")
+    npd = res2[0]["notposdef"]
+    check(all(r["notposdef"]["status"] == 1 for r in res2)
+          and npd["single_status"] == 1
+          and all(r["notposdef"]["minor"] == npd["single_minor"]
+                  for r in res2),
+          f"[dist] lap3d_{DIST_INDEF_K} - 3I: {[r['notposdef'] for r in res2]}")
+    out["notposdef"] = npd
+    log(f"[dist] lap3d_{DIST_INDEF_K} - 3I over 2 ranks: NOT_POSDEF, minor "
+        f"{npd['minor']} (single-process {npd['single_minor']})")
+    lv = res2[0]["level_step"]
+    check(all(r["level_step"]["vs_single_max_abs"] == 0.0 for r in res2),
+          f"[dist] distributed_level_step differs from the single-process "
+          f"step: {[r['level_step'] for r in res2]}")
+    out["level_step"] = lv
+    log(f"[dist] distributed_level_step lap3d_{DIST_LEVEL_K} {json.dumps(lv)}")
+
+    lap1 = f"lap3d_{DIST_NCCL_K}"
+    job = dict(backend="nccl", device="cuda", cases=[
+        dict(kind="dist", name=lap1, gen="laplacian_3d", arg=DIST_NCCL_K,
+             dtype="float32", reps=REFACTOR_REPS, refine=REFINE_STEPS,
+             check_wave=True, seed=DIST_SEED)])
+    t0 = time.perf_counter()
+    res1 = launch(1, job, os.path.join(work, "p1"), DIST_TIMEOUT)
+    out[lap1] = dist_check(lap1, res1)
+    out[lap1]["launch_s"] = time.perf_counter() - t0
+    log(f"[dist] {json.dumps(out[lap1])}")
+
+    launches = {k.__name__: k.launches for k in probes}
+    for r in res4 + res2 + res1:
+        for name, v in r["kernel_launches"].items():
+            launches[name] += v
+    log(f"[main] kernel launches on the distributed path (every rank): "
+        f"{json.dumps(launches)}")
+    check(not any(launches.values()),
+          f"a kernel of the port ran on the distributed path: {launches}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1955,6 +2115,11 @@ def main() -> int:
     # door's SPD branch runs block_chol
     run_qr(probes)
     log(f"[time] qr phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # the distributed layer: ranks in processes of their own on this card;
+    # no kernel of the port lies on its path
+    run_dist(probes, front)
+    log(f"[time] dist phase done at {time.perf_counter() - t_start:.1f} s")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": [kline, bline] + dlines}), flush=True)

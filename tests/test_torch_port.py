@@ -49,6 +49,9 @@ import suitesparse_tpu_torch.ops
 import suitesparse_tpu_torch.ops.host
 import suitesparse_tpu_torch.ops.spgemm
 import suitesparse_tpu_torch.ops.spmv
+import suitesparse_tpu_torch.parallel
+import suitesparse_tpu_torch.parallel.block_cyclic
+import suitesparse_tpu_torch.parallel.dist
 import suitesparse_tpu_torch.graphblas
 import suitesparse_tpu_torch.graphblas.algorithms
 import suitesparse_tpu_torch.graphblas.core
@@ -66,8 +69,10 @@ import suitesparse_tpu_torch.qr
 import suitesparse_tpu_torch.qr.spqr
 import suitesparse_tpu_torch.tools
 import suitesparse_tpu_torch.tools.bench_bcsr
+import suitesparse_tpu_torch.tools.dist_scaling
 import suitesparse_tpu_torch.tools.klu_host
 import suitesparse_tpu_torch.tools.microbench_dispatch
+import suitesparse_tpu_torch.tools.multihost_dryrun
 import suitesparse_tpu_torch.utils
 import suitesparse_tpu_torch.utils.serialize
 import chip_smoke
