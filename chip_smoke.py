@@ -62,6 +62,14 @@ not set the time of a kernel shorter than its launch; it and its yardstick
 ``torch.linalg.cholesky_ex``, which waits on the host and cannot be
 queued, are also timed by their device busy time under torch.profiler.
 
+Every refactorization and solve of the Cholesky, LU and KLU paths runs
+as a device program (``suitesparse_tpu_torch/utils/programs.py``): captured
+once per plan into a CUDA graph, then replayed.  Each program's replay is
+timed in pairs against its eager body in this run (alternating which goes
+first), checked bit for bit against it, and reported with its warm-up and
+capture seconds, graph node count and graph pool; the refactor profiles
+are taken of both.
+
 Output: one line per phase, then a ``{"kernels": [...]}`` line, the card's
 name and power limit (nvidia-smi), and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -114,6 +122,7 @@ LU_OMEGA_RAW_MAX = 1e-5        # the float32 factor's solve, unrefined
 LU_SEED = 7
 KLU_N = 4000
 KLU_SWEEP = 8
+KLU_SWEEP_REPS = 2             # pairs of the sweep (about 2 s a run)
 KLU_RES_MAX = 1e-4             # float32 device solves
 # the [qr] phase: grad3d_QR_TIK_K_tik = [G; QR_TIK_MU I] and randunsym_5000
 # through qr_symbolic/qr_factorize/qr_rsolve, the keep_q paths on
@@ -463,17 +472,89 @@ def profile_refactor(name, run, refactor_ms: float, outdir: str,
                     calls.items(), key=lambda kv: -kv[1])[:8]])
 
 
+def free_device_memory():
+    """Collect the last phase's plans (their programs hold graph pools)
+    and return the cached blocks to the device."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tree_equal(a, b) -> bool:
+    """Bit-identical tensors, or tuples/lists of them."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return len(a) == len(b) and all(tree_equal(x, y) for x, y in zip(a, b))
+
+
+def graph_pool_bytes(prog) -> int:
+    """Bytes of the device memory the allocator holds in a program's
+    private graph pool."""
+    import torch
+    pool = tuple(prog.graph.pool())
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def program_stats(prog) -> dict:
+    """A captured program's warm-up and capture seconds, node count and
+    graph pool."""
+    return dict(warmup_s=prog.warmup_s, capture_s=prog.capture_s,
+                graph_nodes=prog.nodes,
+                graph_pool_gib=graph_pool_bytes(prog) / 2**30)
+
+
+def peak_gib(fn) -> float:
+    """Peak device memory above what was allocated before, over one call
+    of ``fn`` (its result freed before the next reading)."""
+    import torch
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    sync()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def pairs(name, prog, inputs, reps, want=None) -> dict:
+    """One untimed round, then ``reps`` rounds of the program's eager
+    body and its replay on the same inputs, alternating which runs first,
+    each timed on the host clock ended by a sync; every result must equal
+    ``want`` (default: the first result) bit for bit."""
+    eager, replay = [], []
+    for r in range(reps + 1):
+        order = ((eager, prog.eager), (replay, prog))
+        for times, fn in (order if r % 2 == 0 else order[::-1]):
+            t, out = host_time(lambda: fn(*inputs))
+            if r:
+                times.append(t * 1e3)
+            if want is None:
+                want = out
+            check(tree_equal(out, want), f"{name}: replay and eager body "
+                  f"differ")
+            del out
+    return dict(eager_ms=float(np.median(eager)), eager_ms_all=eager,
+                replay_ms=float(np.median(replay)), replay_ms_all=replay,
+                bit_identical=True)
+
+
 def run_matrix(name: str, reps: int):
+    """One full-size matrix through the main path: the first factor (the
+    pf program's warm-up and capture), the refactor in pairs (eager body
+    against replay, default, trsm_inv=False and syrk_bf16), a profile of
+    each route, the inverted diagonal blocks, the 1- and 32-RHS solves in
+    pairs, and float64 refinement."""
     import torch
     from suitesparse_tpu_torch.cholesky import (analyze, factorize_super,
                                                 residual_norm, solve_super,
                                                 super_symbolic)
     from suitesparse_tpu_torch.cholesky.kernels import block_chol
-    from suitesparse_tpu_torch.cholesky.pf import pf_numeric
+    from suitesparse_tpu_torch.cholesky.pf import pf_program
     from suitesparse_tpu_torch.cholesky.super_numeric import (
-        _assemble_values, build_plan)
-    from suitesparse_tpu_torch.cholesky.wave import (solve_dinv,
-                                                     wave_solve_llt)
+        build_plan, solve_program)
+    from suitesparse_tpu_torch.cholesky.wave import dinv_program
     from suitesparse_tpu_torch.core.common import default_common
     from suitesparse_tpu_torch.io.generators import (symmetrize_upper,
                                                      synthetic_standin)
@@ -489,67 +570,93 @@ def run_matrix(name: str, reps: int):
     ss = super_symbolic(A, sym, cm)
     plan = build_plan(ss)
     pfp = plan.pf_plan(cm)
-    wp = plan.wave_plan(solve_only=True)
     t_an = time.perf_counter() - t0
     log(f"[{name}] n={n} nnz(A)={A.nnz} lnz={sym.lnz} fl={sym.flops:.4g} "
         f"nsuper={ss.nsuper} buckets={plan.nbuckets} "
         f"instr={len(pfp.instr_cls)} buf={pfp.buf} analyze+plan={t_an:.2f}s")
 
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     l0 = block_chol.launches
     t_first, f = host_time(lambda: factorize_super(
         A, sym, ss, plan=plan, common=cm, device="cuda"))
     per_factor = block_chol.launches - l0
+    capture_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    prog = pf_program(pfp, np.float32, device="cuda")
     check(f.ok, f"{name}: factor not positive definite (minor {f.minor})")
     check(f.Lx.dtype == torch.float32, f"{name}: factor dtype {f.Lx.dtype}")
+    check(prog.graph is not None, f"{name}: the pf program was not captured")
     check(per_factor > 0, f"{name}: block_chol not launched")
-    check(per_factor == sum(factor_shapes(pfp).values()),
-          f"{name}: launches {per_factor} differ from the plan's count")
-    vd = torch.as_tensor(_assemble_values(A, sym, ss, np.float32),
-                         device="cuda")
-    t_ref = []
-    first = None
-    for _ in range(reps):
-        t, Lx = host_time(lambda: pf_numeric(vd, pfp, np.float32,
-                                             device="cuda"))
-        t_ref.append(t)
-        first = Lx if first is None else first
-    identical = torch.equal(first, Lx) and torch.equal(f.Lx, Lx)
-    check(identical, f"{name}: refactorizations are not bit-identical")
-    del first, Lx
-    t_refactor = float(np.median(t_ref))
-    prof = profile_refactor(
-        name, lambda: pf_numeric(vd, pfp, np.float32, device="cuda"),
-        t_refactor * 1e3, PROFILE_DIR)
+    check(per_factor == sum(factor_shapes(pfp).values())
+          and prog.per_replay == (per_factor,),
+          f"{name}: launches {per_factor} (per replay {prog.per_replay}) "
+          f"differ from the plan's count")
+    vd = prog.static[0].clone()
+    cap = program_stats(prog)
+    log(f"[{name}] pf program captured: {json.dumps(cap)}; first factor "
+        f"{t_first:.2f} s")
+    l0 = block_chol.launches
+    pf_pairs = pairs(name, prog, (vd,), reps, want=f.Lx)
+    check(block_chol.launches - l0 == (reps + 1) * 2 * per_factor,
+          f"{name}: block_chol launches over the pairs")
+    mem = dict(eager_peak_gib=peak_gib(lambda: prog.eager(vd)),
+               replay_peak_gib=peak_gib(lambda: prog(vd)),
+               capture_peak_gib=capture_peak,
+               graph_pool_gib=cap["graph_pool_gib"])
+    # a second factor leaves the first one's buffer as it was
+    keep = f.Lx.clone()
+    other = prog(2.0 * vd)
+    check(torch.equal(f.Lx, keep) and not torch.equal(other, f.Lx),
+          f"{name}: a second factor changed the first")
+    del keep, other
+    t_refactor = pf_pairs["replay_ms"] / 1e3
+    prof = profile_refactor(name, lambda: prog(vd), t_refactor * 1e3,
+                            PROFILE_DIR)
     log("[profile] " + json.dumps(prof))
+    prof_eager = profile_refactor(f"{name}_eager", lambda: prog.eager(vd),
+                                  pf_pairs["eager_ms"], PROFILE_DIR)
+    log("[profile] " + json.dumps(prof_eager))
 
-    t_dinv, Dv = host_time(lambda: solve_dinv(wp, f.Lx))
-    f._dinv = Dv
-    perm = torch.as_tensor(sym.perm, device="cuda")
-    invp = np.empty(n, dtype=np.int64)
-    invp[sym.perm] = np.arange(n)
-    invp = torch.as_tensor(invp, device="cuda")
-    b = np.ones(n)
+    # the solves, in pairs: A with perm and invperm inside the program
     b1 = torch.ones((n, 1), dtype=torch.float32, device="cuda")
     b32 = torch.as_tensor(np.random.default_rng(1).standard_normal((n, 32)),
                           dtype=torch.float32, device="cuda")
-    ms1 = event_ms(lambda: wave_solve_llt(wp, f.Lx, b1, Dv, perm, invp), reps)
-    ms32 = event_ms(lambda: wave_solve_llt(wp, f.Lx, b32, Dv, perm, invp),
-                    reps)
-    xdev = wave_solve_llt(wp, f.Lx, b1, Dv, perm, invp)[:, 0]
+    t_dinv, _ = host_time(lambda: solve_super(f, np.ones(n), "A", cm))
+    dprog = dinv_program(plan.wave_plan(solve_only=True), torch.float32,
+                         f.Lx.device)
+    dinv = dict(pairs(f"{name} dinv", dprog, (f.Lx[:plan.total],), 1,
+                      want=f._dinv),
+                **program_stats(dprog))
+    solves = {}
+    for k, bk in ((1, b1), (32, b32)):
+        sp = solve_program(f, "A", k, cm)
+        sp.prepare(bk)
+        check(sp.graph is not None, f"{name}: solve k={k} not captured")
+        solves[k] = dict(pairs(f"{name} solve k={k}", sp, (bk,), reps),
+                         **program_stats(sp))
+    ms1, ms32 = solves[1]["replay_ms"], solves[32]["replay_ms"]
+    xdev = solve_program(f, "A", 1, cm)(b1)[:, 0]
     check(tuple(xdev.shape) == (n,) and bool(torch.isfinite(xdev).all()),
           f"{name}: device solve shape/finiteness")
+    b = np.ones(n)
     res_dev = residual_norm(A, xdev.double().cpu().numpy(), b)
     check(res_dev < 1e-4, f"{name}: device solve residual {res_dev:.2e}")
 
     Sf = A.to_scipy().astype(np.float64)
     x = solve_super(f, b, "A", cm).astype(np.float64)
     res0 = residual_norm(A, x, b)
-    for _ in range(3):
+    for _ in range(REFINE_STEPS):
         x = x + solve_super(f, b - Sf @ x, "A", cm).astype(np.float64)
     res = residual_norm(A, x, b)
     check(res <= RESIDUAL_MAX, f"{name}: residual {res:.3e} > {RESIDUAL_MAX}")
     peak = torch.cuda.max_memory_allocated()   # one factor and its solves
+
+    # syrk_bf16 (pf): its own program, bit-identical to its eager body
+    bprog = pf_program(pfp, np.float32, syrk_bf16=True, device="cuda")
+    bf16_pairs = dict(pairs(f"{name} syrk_bf16", bprog, (vd,), 1),
+                      **program_stats(bprog))
+    pfp._cache.pop(bprog.key)
+    del bprog
 
     # the backward-stable TRSM (Common.cholesky.trsm_inv = False): every
     # factor wave through torch.linalg's Cholesky and triangular solve, so
@@ -561,53 +668,98 @@ def run_matrix(name: str, reps: int):
     l0 = block_chol.launches
     ft = factorize_super(A, sym, ss, plan=plan, common=cmt, device="cuda")
     check(ft.ok, f"{name}: trsm_inv=False factor minor {ft.minor}")
-    t_tri = []
-    for _ in range(reps):
-        t, Lt = host_time(lambda: pf_numeric(vd, pfp, np.float32,
-                                             device="cuda", trsm_inv=False))
-        t_tri.append(t)
-    check(torch.equal(Lt, ft.Lx),
-          f"{name}: trsm_inv=False refactorizations are not bit-identical")
+    tprog = pf_program(pfp, np.float32, trsm_inv=False, device="cuda")
+    check(tprog.graph is not None,
+          f"{name}: the trsm_inv=False program was not captured")
+    tri_pairs = dict(pairs(f"{name} trsm_inv=False", tprog, (vd,), reps,
+                           want=ft.Lx), **program_stats(tprog))
     check(block_chol.launches == l0, f"{name}: trsm_inv=False launched "
           f"block_chol")
-    del Lt
-    t_tri_med = float(np.median(t_tri))
+    t_tri_med = tri_pairs["replay_ms"] / 1e3
     prof_tri = profile_refactor(
-        f"{name}_trsm_inv_false",
-        lambda: pf_numeric(vd, pfp, np.float32, device="cuda",
-                           trsm_inv=False), t_tri_med * 1e3, PROFILE_DIR)
+        f"{name}_trsm_inv_false", lambda: tprog(vd), t_tri_med * 1e3,
+        PROFILE_DIR)
     log("[profile] " + json.dumps(prof_tri))
+    prof_tri_eager = profile_refactor(
+        f"{name}_trsm_inv_false_eager", lambda: tprog.eager(vd),
+        tri_pairs["eager_ms"], PROFILE_DIR)
+    log("[profile] " + json.dumps(prof_tri_eager))
     tot = plan.total
     d_tri = rel_err(ft.Lx[:tot], f.Lx[:tot])
     # two float32 factors of one matrix by two TRSMs
     check(d_tri <= 1e-3, f"{name}: trsm_inv=False vs default {d_tri:.3e}")
     xt = solve_super(ft, b, "A", cmt).astype(np.float64)
-    for _ in range(3):
+    for _ in range(REFINE_STEPS):
         xt = xt + solve_super(ft, b - Sf @ xt, "A", cmt).astype(np.float64)
     res_tri = residual_norm(A, xt, b)
     check(res_tri <= RESIDUAL_MAX,
           f"{name}: trsm_inv=False residual {res_tri:.3e} > {RESIDUAL_MAX}")
-    del ft
+    del ft, tprog
     row = dict(matrix=name, n=n, lnz=int(sym.lnz), flops=float(sym.flops),
                instr=int(len(pfp.instr_cls)), analyze_s=t_an,
-               first_factor_s=t_first, refactor_ms=t_refactor * 1e3,
-               refactor_ms_all=[t * 1e3 for t in t_ref],
+               first_factor_s=t_first, capture=cap, memory=mem,
+               refactor_ms=t_refactor * 1e3,
+               refactor_ms_all=pf_pairs["replay_ms_all"],
+               eager_refactor_ms=pf_pairs["eager_ms"],
+               eager_refactor_ms_all=pf_pairs["eager_ms_all"],
+               device_busy_ms=prof["device_busy_ms"],
+               idle_share=prof["idle_share"],
+               eager_device_busy_ms=prof_eager["device_busy_ms"],
+               eager_idle_share=prof_eager["idle_share"],
                factor_gflops=sym.flops / t_refactor / 1e9,
-               dinv_ms=t_dinv * 1e3, solve1_ms=ms1, solve32_ms=ms32,
+               dinv_and_first_solve_ms=t_dinv * 1e3, dinv=dinv,
+               solve1_ms=ms1,
+               solve32_ms=ms32, solves=solves,
                solve1_gflops=4 * sym.lnz / (ms1 * 1e-3) / 1e9,
                solve32_gflops=32 * 4 * sym.lnz / (ms32 * 1e-3) / 1e9,
                residual_f32=res0, residual_refined=res,
-               bit_identical_refactor=bool(identical),
-               trsm_inv_false_refactor_ms=t_tri_med * 1e3,
-               trsm_inv_false_refactor_ms_all=[t * 1e3 for t in t_tri],
+               bit_identical_refactor=True, syrk_bf16=bf16_pairs,
+               trsm_inv_false=tri_pairs,
                trsm_inv_false_device_busy_ms=prof_tri["device_busy_ms"],
                trsm_inv_false_idle_share=prof_tri["idle_share"],
+               trsm_inv_false_eager_device_busy_ms=prof_tri_eager[
+                   "device_busy_ms"],
+               trsm_inv_false_eager_idle_share=prof_tri_eager["idle_share"],
                trsm_inv_false_rel_diff=d_tri,
                trsm_inv_false_residual_refined=res_tri,
                peak_mem_gib=peak / 2**30,
                block_chol_launches_per_factor=per_factor)
     log(f"[{name}] " + json.dumps(row))
     return row, factor_shapes(pfp)
+
+
+def run_unrolled() -> dict:
+    """lap3d_10 (few buckets: the unrolled program) in float32: its
+    replay against its eager body, bit for bit, and a solve."""
+    import torch
+    from suitesparse_tpu_torch.cholesky import (analyze, factorize_super,
+                                                residual_norm, solve_super,
+                                                super_symbolic)
+    from suitesparse_tpu_torch.cholesky.super_numeric import (
+        build_plan, factor_program)
+    from suitesparse_tpu_torch.core.common import default_common
+    from suitesparse_tpu_torch.io.generators import laplacian_3d
+    A = laplacian_3d(10)
+    cm = default_common()
+    cm.cholesky.supernodal = "supernodal"
+    sym = analyze(A, cm)
+    ss = super_symbolic(A, sym, cm)
+    plan = build_plan(ss)
+    check(plan.resolve_program(cm) == "unrolled",
+          "lap3d_10 does not take the unrolled program")
+    f = factorize_super(A, sym, ss, plan=plan, common=cm)
+    prog = factor_program(plan, cm, np.float32, "cuda")
+    check(f.ok and prog.graph is not None, "unrolled program not captured")
+    res = pairs("lap3d_10 unrolled", prog, (prog.static[0].clone(),),
+                REFACTOR_REPS, want=f.Lx)
+    b = np.ones(A.ncol)
+    x = solve_super(f, b, "A", cm)
+    r = residual_norm(A, x.astype(np.float64), b)
+    check(r < 1e-4, f"lap3d_10 unrolled solve residual {r:.2e}")
+    out = dict(matrix="lap3d_10", program="unrolled", residual_f32=r,
+               **res, **program_stats(prog))
+    log(f"[small] {json.dumps(out)}")
+    return out
 
 
 def kernel_line(shapes, launches, dev_kind):
@@ -1181,8 +1333,8 @@ def run_front():
     import torch
     from suitesparse_tpu_torch.cholesky import (CholeskySolver, cholesky,
                                                 residual_norm, spsolve_chol)
-    from suitesparse_tpu_torch.cholesky.super_numeric import _assemble_values
-    from suitesparse_tpu_torch.cholesky.wave import wave_numeric
+    from suitesparse_tpu_torch.cholesky.super_numeric import factor_program
+    from suitesparse_tpu_torch.cholesky.wave import wave_program
     from suitesparse_tpu_torch.core.common import default_common
     from suitesparse_tpu_torch.io.generators import (symmetrize_upper,
                                                      synthetic_standin)
@@ -1223,12 +1375,27 @@ def run_front():
     f0 = solver.factor
     check(f0.Lx.device.type == "cuda" and f0.Lx.dtype == torch.float32,
           f"CholeskySolver factor on {f0.Lx.device} {f0.Lx.dtype}")
+    prog = factor_program(solver.plan, solver.common, np.float32, "cuda")
+    graph = prog.graph
     t_r1, _ = host_time(lambda: solver.refactorize(A))
     L1 = solver.factor.Lx
     t_r2, _ = host_time(lambda: solver.refactorize(A))
     L2 = solver.factor.Lx
     check(torch.equal(f0.Lx, L1) and torch.equal(L1, L2),
           "CholeskySolver refactorizations are not bit-identical")
+    # a refactorization with new values replays the same graph, and the
+    # factor held before it does not change
+    A2 = type(A)(A.indptr, A.indices, A.data * 2.0, A.shape, A.stype)
+    keep = L2.clone()
+    solver.refactorize(A2)
+    check(not torch.equal(solver.factor.Lx, L2) and torch.equal(L2, keep),
+          "a refactorization with new values changed the earlier factor")
+    solver.refactorize(A)
+    check(graph is not None and prog.graph is graph
+          and factor_program(solver.plan, solver.common, np.float32,
+                             "cuda") is prog,
+          "CholeskySolver refactorizations captured again")
+    del keep
     res_pf = refined(solver.solve)
     check(res_pf[-1] <= RESIDUAL_MAX, f"pf residual {res_pf[-1]:.3e}")
     tot = solver.plan.total
@@ -1261,16 +1428,12 @@ def run_front():
                              ss=solver.ss, plan=solver.plan, device="cuda")
     t_w1, _ = host_time(lambda: wsolver.refactorize(A))
     check(wsolver.factor.ok, f"wave factor minor {wsolver.factor.minor}")
-    vd = torch.as_tensor(_assemble_values(A, solver.sym, solver.ss,
-                                          np.float32), device="cuda")
-    t_wave = []
-    for _ in range(REFACTOR_REPS):
-        t, Lw = host_time(lambda: wave_numeric(vd, wp, np.float32,
-                                               device="cuda"))
-        t_wave.append(t)
-    check(torch.equal(Lw, wsolver.factor.Lx),
-          "wave refactorizations are not bit-identical")
-    del Lw
+    wprog = wave_program(wp, np.float32, device="cuda")
+    check(wprog.graph is not None, "the wave program was not captured")
+    vd = wprog.static[0].clone()
+    wpairs = dict(pairs("wave", wprog, (vd,), REFACTOR_REPS,
+                        want=wsolver.factor.Lx), **program_stats(wprog))
+    t_wave = [t / 1e3 for t in wpairs["replay_ms_all"]]
     d_wave = rel_err(wsolver.factor.Lx[:tot], Lpf)
     # two float32 factors of one matrix by other operation orders
     check(d_wave <= 1e-3, f"wave vs pf factor {d_wave:.3e}")
@@ -1279,7 +1442,8 @@ def run_front():
     log(f"[front] wave program: {len(wp.instr_cls)} waves in "
         f"{len(wp.classes)} classes, plan {t_wp:.2f} s, first factor "
         f"{t_w1:.3f} s, refactor median {np.median(t_wave) * 1e3:.1f} ms "
-        f"(all {[round(t * 1e3, 1) for t in t_wave]}), bit-identical; "
+        f"replayed (all {[round(t * 1e3, 1) for t in t_wave]}), eager "
+        f"{wpairs['eager_ms']:.1f} ms, bit-identical; "
         f"relative difference to the pf factor {d_wave:.3e}; residuals "
         f"{res_wave}")
 
@@ -1306,6 +1470,7 @@ def run_front():
                 wave_plan_s=t_wp, wave_first_factor_s=t_w1,
                 wave_refactor_ms=float(np.median(t_wave)) * 1e3,
                 wave_refactor_ms_all=[t * 1e3 for t in t_wave],
+                wave_pairs=wpairs,
                 wave_waves=int(len(wp.instr_cls)),
                 wave_vs_pf_rel=d_wave, wave_residuals=res_wave,
                 bf16_factor_s=t_b, bf16_vs_f32_rel=d_bf16,
@@ -1366,6 +1531,7 @@ def run_lu_matrix(name, A) -> dict:
     import torch
     from suitesparse_tpu_torch.core.common import default_common
     from suitesparse_tpu_torch.lu import umf_numeric, umf_solve, umf_symbolic
+    from suitesparse_tpu_torch.lu.multifrontal import umf_program
     n = A.ncol
     cm = default_common()
     t0 = time.perf_counter()
@@ -1380,6 +1546,16 @@ def run_lu_matrix(name, A) -> dict:
     t_first, num = host_time(lambda: umf_numeric(A, S, cm))
     check(not num.singular, f"{name}: numeric flagged singular")
     check(num.Lb.device.type == "cuda", f"{name}: factor on {num.Lb.device}")
+    prog = umf_program(S, np.float32, "cuda")
+    check(prog.graph is not None, f"{name}: the LU program was not captured")
+    cap = program_stats(prog)
+    vj = prog.static[0].clone()
+    lu_pairs = pairs(f"{name} umf", prog, (vj,), LU_REPS,
+                     want=(num.Lb, num.Ub, num.pivs))
+    prof_eager = profile_refactor(f"lu_{name}_eager",
+                                  lambda: prog.eager(vj),
+                                  lu_pairs["eager_ms"], PROFILE_DIR)
+    log("[profile] " + json.dumps(prof_eager))
     t_ref, t_val = [], []
     for _ in range(LU_REPS):
         v0 = cm.info["time_umf_values"]
@@ -1427,7 +1603,10 @@ def run_lu_matrix(name, A) -> dict:
                 host_values_ms=float(np.median(t_val)) * 1e3,
                 bit_identical_refactor=True,
                 device_busy_ms=prof["device_busy_ms"],
-                idle_share=prof["idle_share"], solves=solves,
+                idle_share=prof["idle_share"], capture=cap,
+                program_pairs=lu_pairs,
+                eager_device_busy_ms=prof_eager["device_busy_ms"],
+                eager_idle_share=prof_eager["idle_share"], solves=solves,
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
@@ -1465,6 +1644,7 @@ def run_klu() -> dict:
     from suitesparse_tpu_torch.core.sparse import SparseCSC
     from suitesparse_tpu_torch.io.generators import circuit_like
     from suitesparse_tpu_torch.lu import klu_device
+    from suitesparse_tpu_torch.lu.klu_device import klu_refactor_program
     from suitesparse_tpu_torch.tools import klu_host
     n = KLU_N
     A = circuit_like(n)
@@ -1491,6 +1671,12 @@ def run_klu() -> dict:
     prof = profile_refactor(f"klu_circuit_{n}", lambda: refactor(av),
                             t_med * 1e3, PROFILE_DIR)
     log("[profile] " + json.dumps(prof))
+    dev = torch.device("cuda")
+    rprog = klu_refactor_program(plan, 1, torch.float32, dev)
+    check(rprog.graph is not None, f"circuit_{n}: refactor not captured")
+    cap = program_stats(rprog)
+    av1 = av[None].clone()
+    klu_pairs = pairs(f"circuit_{n} klu", rprog, (av1,), LU_REPS)
     ms_solve = []
     for _ in range(LU_REPS):
         t, x = host_time(lambda: solve(factors, Rs, av, b))
@@ -1508,6 +1694,11 @@ def run_klu() -> dict:
                            device="cuda")
     t_sw, (fs, Rss, oks) = host_time(lambda: refactor(vals))
     t_sws, xs = host_time(lambda: solve(fs, Rss, vals, b))
+    sprog = klu_refactor_program(plan, KLU_SWEEP, torch.float32, dev)
+    check(sprog.graph is not None, f"circuit_{n}: sweep not captured")
+    sweep_pairs = dict(pairs(f"circuit_{n} sweep", sprog, (vals,),
+                             KLU_SWEEP_REPS, want=(fs, Rss, oks)),
+                       **program_stats(sprog))
     check(tuple(xs.shape) == (KLU_SWEEP, n) and bool(oks.all()),
           f"circuit_{n} sweep: shape {tuple(xs.shape)}, ok {oks.tolist()}")
     res_sw = []
@@ -1536,7 +1727,13 @@ def run_klu() -> dict:
                 device_refactor_ms=t_med * 1e3,
                 device_refactor_ms_all=[t * 1e3 for t in t_ref],
                 device_busy_ms=prof["device_busy_ms"],
-                idle_share=prof["idle_share"],
+                idle_share=prof["idle_share"], capture=cap,
+                program_pairs=klu_pairs,
+                # the eager body runs the replay's 40,000 kernels; its
+                # trace is not taken, to keep the smoke short
+                eager_idle_share_vs_replay_busy=1.0 - prof[
+                    "device_busy_ms"] / klu_pairs["eager_ms"],
+                sweep_pairs=sweep_pairs,
                 device_solve_ms=float(np.median(ms_solve)),
                 device_residual=res_d, device_vs_host_rel=rel_h,
                 bit_identical_refactor=True, sweep=KLU_SWEEP,
@@ -1551,6 +1748,7 @@ def run_lu() -> list:
     for name, A in lu_matrices():
         rows.append(run_lu_matrix(name, A))
         del A
+        free_device_memory()
     rows.append(run_lu_singular())
     rows.append(run_klu())
     for row in rows:
@@ -2042,6 +2240,7 @@ def main() -> int:
     phase_setup()
     phase_kernel_vs_plain()
     phase_small_parity()
+    run_unrolled()
     os.makedirs(PROFILE_DIR, exist_ok=True)
 
     from suitesparse_tpu_torch.cholesky.kernels import block_chol
@@ -2051,6 +2250,7 @@ def main() -> int:
     for name in MATRICES:
         rows[name], sh = run_matrix(name, REFACTOR_REPS)
         shapes = shapes or sh
+        free_device_memory()           # this plan's programs and pools
     launches = block_chol.launches
     check(launches > 0, "main path never launched block_chol")
     log(f"[main] block_chol launches on the main path: {launches}")
@@ -2098,6 +2298,7 @@ def main() -> int:
     log(f"[main] block_chol launches on the front-end path: "
         f"{block_chol.launches}")
     log(f"[front] {json.dumps(front)}")
+    free_device_memory()
 
     # the LU family: no kernel of the port lies on its path
     probes = (block_chol, bcsr_spmm, probe.scale_blocks, probe.scale_gather)
@@ -2109,6 +2310,7 @@ def main() -> int:
     check(not any(lu_launches.values()),
           f"a kernel of the port ran on the LU path: {lu_launches}")
     log(f"[time] lu phase done at {time.perf_counter() - t_start:.1f} s")
+    free_device_memory()
 
     # the QR family: no kernel of the port lies on the QR path (the
     # reference's QR is jnp.linalg.qr per bucket); the Factorize front

@@ -72,6 +72,9 @@ def block_chol(S: torch.Tensor, pe: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# Launches of the kernel: one for each call above, and for each replay of a
+# captured device program the number its capture recorded (a replay makes
+# no Python call; utils/programs.py adds them)
 block_chol.launches = 0
 
 

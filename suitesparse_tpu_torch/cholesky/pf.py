@@ -19,9 +19,11 @@ the port's plan and panel buffer are interchangeable with the reference's:
 
 Program form.  The reference compiles the instruction stream in four XLA
 forms (unroll / scan / vm / runs) that exist only for XLA compile cost.
-PyTorch runs eagerly, so the port has ONE straight-line form: a Python
-loop over the instruction stream that updates the flat factor buffer in
-place where the reference relied on dynamic_update_slice aliasing.
+The port has ONE straight-line form: a Python loop over the instruction
+stream that updates the flat factor buffer in place where the reference
+relied on dynamic_update_slice aliasing.  ``pf_program`` makes it a device
+program (utils/programs.py): captured once per plan into a CUDA graph and
+replayed for every refactorization on the card.
 
 Update-slot convention: a slot holds the accumulated incoming update in
 LOWER-triangle-canonical form until its supernode factors (the factor
@@ -36,12 +38,13 @@ import torch
 
 from ..core.sparse import INDEX
 from ..utils.device import resolve_device, torch_dtype
-from .kernels import panel_factor
-from .super_numeric import (NumericPlan, _a_sorted_maps, _index, _panels,
+from ..utils.programs import DeviceProgram, cached_program
+from .kernels import block_chol, panel_factor
+from .super_numeric import (NumericPlan, _device_amaps, _index, _panels,
                             _seg_lengths, assemble, cholesky_or_nan,
                             scatter_add_maps, segment_sum, syrk)
 
-__all__ = ["PFPlan", "build_pf_plan", "pf_numeric"]
+__all__ = ["PFPlan", "build_pf_plan", "pf_numeric", "pf_program"]
 
 # Largest panel column class factored by panel_factor (block_chol on
 # 128-wide slabs); wider classes take torch.linalg's batched Cholesky and
@@ -855,30 +858,46 @@ def _pf_steps(class_ops, meta, syrk_bf16=False, trsm_inv=True):
     return steps
 
 
-def pf_numeric(vals, pfp: PFPlan, dtype, syrk_bf16=False, device=None,
-               trsm_inv=True):
-    """The full numeric factorization with pass-forward extend-add:
-    A-assembly into a zero buffer, then the instruction stream in order.
-    Returns the flat (pfp.buf,) buffer on ``device`` (the card unless
-    "cpu" is asked for).  syrk_bf16: the SYRK updates and the pair
-    placements from bfloat16 inputs, summed in ``dtype``.  trsm_inv
-    (Common.cholesky.trsm_inv): False factors every panel class by
-    torch.linalg's Cholesky and triangular solve instead of panel_factor
-    (block_chol and the explicit inverse): the reference's XLA path with
-    SSTPU_TRSM_INV=0."""
+def pf_program(pfp: PFPlan, dtype, syrk_bf16=False, trsm_inv=True,
+               device=None) -> DeviceProgram:
+    """The pass-forward refactorization as one device program, cached on
+    the plan per (dtype, syrk_bf16, trsm_inv, device): the reference's
+    compiled pf program (suitesparse_tpu/cholesky/pf.py:1052-1094).  Its
+    body is the A-assembly into a zero buffer, then the instruction stream
+    in order; it takes the (nnz,) values and returns the flat (pfp.buf,)
+    buffer."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype)
-    ops = pfp.arrays(dt, dev)
-    key = ("amaps", dev)
-    amaps = pfp._cache.get(key)
-    if amaps is None:
-        a_src, a_dst = _a_sorted_maps(pfp.plan.ss)
-        amaps = (_index(a_src, dev), _index(a_dst, dev))
-        pfp._cache[key] = amaps
-    vals = torch.as_tensor(vals, dtype=dt, device=dev)
-    Fx = assemble(vals, amaps[0], amaps[1], pfp.buf)
-    steps = _pf_steps(ops, pfp.meta, syrk_bf16, trsm_inv)
-    for cid, pos in zip(pfp.instr_cls.tolist(), pfp.instr_pos.tolist()):
-        step, cops = steps[cid]
-        step(Fx, pos, cops)
-    return Fx
+
+    def make():
+        a_src, a_dst = _device_amaps(pfp._cache, pfp.plan.ss, dev)
+        steps = _pf_steps(pfp.arrays(dt, dev), pfp.meta, syrk_bf16, trsm_inv)
+        stream = [steps[cid] + (pos,) for cid, pos
+                  in zip(pfp.instr_cls.tolist(), pfp.instr_pos.tolist())]
+
+        def body(vals):
+            Fx = assemble(vals, a_src, a_dst, pfp.buf)
+            for step, cops, pos in stream:
+                step(Fx, pos, cops)
+            return Fx
+        return body
+
+    return cached_program(pfp._cache, ("pf", dt, bool(syrk_bf16),
+                                       bool(trsm_inv), dev), make, dev,
+                          counters=(block_chol,))
+
+
+def pf_numeric(vals, pfp: PFPlan, dtype, syrk_bf16=False, device=None,
+               trsm_inv=True):
+    """The full numeric factorization with pass-forward extend-add, run as
+    ``pf_program``: a replay of its graph on the card, the body on the
+    CPU.  Returns the flat (pfp.buf,) buffer on ``device`` (the card unless
+    "cpu" is asked for), never shared with a later call's.  syrk_bf16: the
+    SYRK updates and the pair placements from bfloat16 inputs, summed in
+    ``dtype``.  trsm_inv (Common.cholesky.trsm_inv): False factors every
+    panel class by torch.linalg's Cholesky and triangular solve instead of
+    panel_factor (block_chol and the explicit inverse): the reference's
+    XLA path with SSTPU_TRSM_INV=0."""
+    prog = pf_program(pfp, dtype, syrk_bf16, trsm_inv, device)
+    return prog(torch.as_tensor(vals, dtype=torch_dtype(dtype),
+                                device=prog.device))

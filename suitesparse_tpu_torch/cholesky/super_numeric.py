@@ -25,6 +25,7 @@ per-bucket arithmetic over uniform waves (wave.wave_numeric).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -35,6 +36,7 @@ from ..core.sparse import INDEX, SparseCSC
 from ..core.status import Status
 from ..utils.device import (default_dtype, numpy_dtype, resolve_device,
                             torch_dtype)
+from ..utils.programs import DeviceProgram, cached_program
 from .supernodal import SuperSymbolic
 from .symbolic import Symbolic
 
@@ -368,6 +370,17 @@ def _a_sorted_maps(ss: SuperSymbolic):
     return maps
 
 
+def _device_amaps(cache: dict, ss: SuperSymbolic, dev) -> tuple:
+    """The sorted assembly maps as index tensors on ``dev``, cached in a
+    plan's ``cache``."""
+    key = ("amaps", dev)
+    got = cache.get(key)
+    if got is None:
+        a_src, a_dst = _a_sorted_maps(ss)
+        got = cache[key] = (_index(a_src, dev), _index(a_dst, dev))
+    return got
+
+
 def assemble(vals: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor,
              size: int) -> torch.Tensor:
     """Zero factor buffer of ``size`` with tril(PAP') set into its panel
@@ -421,6 +434,41 @@ def _numeric_program(vals, a_src, a_dst, level_arrays, meta, total,
     return Lx
 
 
+def unrolled_program(plan: NumericPlan, dtype, syrk_bf16=False,
+                     device=None) -> DeviceProgram:
+    """``_numeric_program`` as a device program, cached on the plan per
+    (dtype, syrk_bf16, device): the reference's jitted unrolled program
+    (suitesparse_tpu/cholesky/super_numeric.py:413-421)."""
+    dev = resolve_device(device)
+    dt = torch_dtype(dtype)
+
+    def make():
+        a_src, a_dst = _device_amaps(plan._cache, plan.ss, dev)
+        arrays = plan.arrays_segsum(dt, dev)
+        return lambda vals: _numeric_program(vals, a_src, a_dst, arrays,
+                                             plan.meta, plan.total,
+                                             syrk_bf16)
+
+    return cached_program(plan._cache, ("unrolled", dt, bool(syrk_bf16),
+                                        dev), make, dev)
+
+
+def factor_program(plan: NumericPlan, common: Common, dtype,
+                   device) -> DeviceProgram:
+    """The device program that factorize_super runs for ``plan`` under
+    ``common`` (Common.cholesky.program, syrk_bf16 and trsm_inv)."""
+    opts = common.cholesky
+    prog = plan.resolve_program(common)
+    if prog == "pf":
+        from .pf import pf_program
+        return pf_program(plan.pf_plan(common), dtype, opts.syrk_bf16,
+                          opts.trsm_inv, device)
+    if prog == "wave":
+        from .wave import wave_program
+        return wave_program(plan.wave_plan(), dtype, opts.syrk_bf16, device)
+    return unrolled_program(plan, dtype, opts.syrk_bf16, device)
+
+
 @dataclasses.dataclass
 class SuperFactor:
     """Numeric supernodal factor: flat panel buffer + plan (PAP' = LL')."""
@@ -431,6 +479,7 @@ class SuperFactor:
     minor: int
     dtype: object               # numpy float dtype of Lx
     _dinv: object = None        # per-factor inverted diagonal blocks
+    _cache: dict = dataclasses.field(default_factory=dict)  # solve programs
 
     @property
     def n(self) -> int:
@@ -520,31 +569,23 @@ def factorize_super(A: SparseCSC, sym: Symbolic, ss: SuperSymbolic,
             "matrices")
     dev = resolve_device(device)
     dtype = numpy_dtype(default_dtype(dev) if dtype is None else dtype)
-    bf16 = cm.cholesky.syrk_bf16
     plan = plan or build_plan(ss)
-    prog = plan.resolve_program(cm)
-    cm.tic("factorize")
+    prog = factor_program(plan, cm, dtype, dev)
+    t0 = time.perf_counter()
     vals = torch.as_tensor(_assemble_values(A, sym, ss, dtype), device=dev)
-    if prog == "pf":
-        from .pf import pf_numeric
-        Lx = pf_numeric(vals, plan.pf_plan(cm), dtype, bf16, device=dev,
-                        trsm_inv=cm.cholesky.trsm_inv)
-    elif prog == "wave":
-        from .wave import wave_numeric
-        Lx = wave_numeric(vals, plan.wave_plan(), dtype, bf16, device=dev)
-    else:
-        key = ("amaps", dev)
-        amaps = plan._cache.get(key)
-        if amaps is None:
-            a_src, a_dst = _a_sorted_maps(ss)
-            amaps = (_index(a_src, dev), _index(a_dst, dev))
-            plan._cache[key] = amaps
-        Lx = _numeric_program(vals, amaps[0], amaps[1],
-                              plan.arrays_segsum(dtype, dev), plan.meta,
-                              plan.total, bf16)
+    t_vals = time.perf_counter() - t0
+    if not prog.prepared:
+        # the warm-up and the capture stand apart from the refactorization,
+        # as a first jit call's compile time does
+        prog.prepare(vals)
+        cm.info.update({"factor_warmup_time": prog.warmup_s,
+                        "factor_capture_time": prog.capture_s,
+                        "factor_graph_nodes": prog.nodes})
+    t0 = time.perf_counter()
+    Lx = prog(vals)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    t = cm.toc("factorize")
+    t = t_vals + time.perf_counter() - t0
 
     minor = plan.n
     if bool(torch.isnan(Lx).any()):
@@ -619,89 +660,96 @@ def _ltsolve_impl(Lx, x, level_arrays, meta):
     return x
 
 
+_SOLVE_SYSTEMS = {"A": "A", "LLt": "LLt", "LDLt": "LLt", "L": "L",
+                  "Lt": "Lt"}
+
+
+def solve_program(f: SuperFactor, system: str, k: int,
+                  common: Optional[Common] = None) -> DeviceProgram:
+    """The device program of one solve system ("A", "LLt", "L" or "Lt")
+    on the factor ``f`` for k right-hand sides, cached on the factor (the
+    reference's jitted lsolve/ltsolve programs, suitesparse_tpu/cholesky/
+    super_numeric.py:550-572 and wave.py:512-556): b (n, k) in the factor's
+    dtype -> x (n, k).  "A" applies P and P' inside the program.  pf and
+    wave factors solve over the waves, with the inverted diagonal blocks
+    built once per factor (``wave.dinv_program``); unrolled factors over
+    the levels."""
+    plan = f.plan
+    n = plan.n
+    dev, dt = f.Lx.device, f.Lx.dtype
+    wave = plan.use_wave(common)
+
+    def make():
+        if wave:
+            from .wave import (_dinv_layout, dinv_program, wave_lsolve,
+                               wave_ltsolve)
+            # pf factors reuse the wave solve; only the solve maps are
+            # needed, so a solve-only plan (or a full one already built)
+            # serves every later solve too.  (The reference asks for the
+            # full plan from the second solve on, which rebuilds the
+            # factor's extend-add maps: seconds at lap3d_44 for maps the
+            # solve never reads.)
+            wp = plan.wave_plan(
+                solve_only=plan.resolve_program(common) == "pf")
+            if f._dinv is None:
+                f._dinv = dinv_program(wp, dt, dev)(f.Lx[:plan.total])
+            Dv = f._dinv
+            wp.solve_arrays(dt, dev)
+            _dinv_layout(wp)
+            xrows = n + wp.xpad
+
+            def lsolve(x):
+                return wave_lsolve(wp, f.Lx, x, Dv)
+
+            def ltsolve(x):
+                return wave_ltsolve(wp, f.Lx, x, Dv)
+        else:
+            xrows = n + 1
+            la = plan.solve_arrays(dt, dev)
+
+            def lsolve(x):
+                return _lsolve_impl(f.Lx, x, la, plan.meta)
+
+            def ltsolve(x):
+                return _ltsolve_impl(f.Lx, x, la, plan.meta)
+
+        perm = _index(f.perm, dev)
+        invperm = _index(np.argsort(f.perm), dev)
+
+        def body(b):
+            x = b.new_zeros((xrows, b.shape[1]))
+            x[:n] = b[perm] if system == "A" else b
+            if system != "Lt":
+                x = lsolve(x)
+            if system != "L":
+                x = ltsolve(x)
+            return x[invperm] if system == "A" else x[:n]
+        return body
+
+    return cached_program(f._cache, ("solve_" + system, wave, dt, int(k),
+                                     dev), make, dev)
+
+
 def solve_super(f: SuperFactor, b: np.ndarray, system: str = "A",
                 common: Optional[Common] = None) -> np.ndarray:
     """cholmod_solve on a supernodal factor. Systems: A, LLt, L, Lt, P, Pt.
 
-    Runs on the factor's device; b and the result are host arrays."""
-    plan = f.plan
-    n = plan.n
-    dev = f.Lx.device
-    dt = f.Lx.dtype
+    Runs on the factor's device through ``solve_program`` (P and Pt on the
+    host); b and the result are host arrays."""
+    n = f.plan.n
     b = np.asarray(b)
     one_d = b.ndim == 1
     bk = b.reshape(n, 1) if one_d else b
-    k = bk.shape[1]
     perm = f.perm
-
-    def _host(x):
-        return x.cpu().numpy()
-
-    if plan.use_wave(common):
-        from .wave import (wave_lsolve, wave_ltsolve, wave_solve_llt,
-                           solve_dinv)
-        # pf factors reuse the wave solve; only the solve maps are needed,
-        # so a solve-only plan (or a full one already built) serves every
-        # later solve too.  (The reference asks for the full plan from the
-        # second solve on, which rebuilds the factor's extend-add maps:
-        # seconds at lap3d_44 for maps the solve never reads.)
-        wp = plan.wave_plan(solve_only=plan.resolve_program(common) == "pf")
-        xrows = n + wp.xpad
-        # inverted diagonal blocks, computed ONCE per numeric factor and
-        # cached on it: every later solve applies them as one product
-        if f._dinv is None:
-            f._dinv = solve_dinv(wp, f.Lx)
-        Dv = f._dinv
-
-        def lsolve(Lx, x):
-            return wave_lsolve(wp, Lx, x, Dv)
-
-        def ltsolve(Lx, x):
-            return wave_ltsolve(wp, Lx, x, Dv)
-
-        if system in ("A", "LLt", "LDLt"):
-            rhs = bk[perm] if system == "A" else bk
-            x = wave_solve_llt(wp, f.Lx, torch.as_tensor(rhs, device=dev),
-                               Dv)
-            xh = _host(x[:n])
-            if system == "A":
-                out = np.empty_like(xh)
-                out[perm] = xh
-            else:
-                out = xh
-            return out.reshape(-1) if one_d else out
-    else:
-        xrows = n + 1
-        la = plan.solve_arrays(dt, dev)
-        meta = plan.meta
-
-        def lsolve(Lx, x):
-            return _lsolve_impl(Lx, x, la, meta)
-
-        def ltsolve(Lx, x):
-            return _ltsolve_impl(Lx, x, la, meta)
-
-    def _pad(v):
-        x = torch.zeros((xrows, k), dtype=dt, device=dev)
-        x[:n] = torch.as_tensor(v, device=dev).to(dt)
-        return x
-
     if system == "P":
         out = bk[perm]
     elif system == "Pt":
         out = np.empty_like(bk)
         out[perm] = bk
-    elif system == "A":
-        x = ltsolve(f.Lx, lsolve(f.Lx, _pad(bk[perm])))
-        xh = _host(x[:n])
-        out = np.empty_like(xh)
-        out[perm] = xh
-    elif system in ("LLt", "LDLt"):
-        out = _host(ltsolve(f.Lx, lsolve(f.Lx, _pad(bk)))[:n])
-    elif system == "L":
-        out = _host(lsolve(f.Lx, _pad(bk))[:n])
-    elif system == "Lt":
-        out = _host(ltsolve(f.Lx, _pad(bk))[:n])
+    elif system in _SOLVE_SYSTEMS:
+        prog = solve_program(f, _SOLVE_SYSTEMS[system], bk.shape[1], common)
+        x = prog(torch.as_tensor(bk, device=f.Lx.device).to(f.Lx.dtype))
+        out = x.cpu().numpy()
     else:
         raise ValueError(f"unknown system {system!r}")
     return out.reshape(-1) if one_d else out

@@ -7,9 +7,12 @@ contiguous slice of the flat factor buffer, with per-wave operands (base
 offset, masks, extend-add and solve maps) stacked per class.
 
 The reference compiles the stream of waves as one XLA program (unrolled
-or scanned with a switch over classes).  PyTorch runs eagerly, so the port
-walks the same stream in a Python loop and updates the factor buffer
-(``wave_numeric``, program="wave") or the solution panel in place.
+or scanned with a switch over classes).  The port walks the same stream in
+a Python loop and updates the factor buffer (``wave_numeric``,
+program="wave") or the solution panel in place; ``wave_program``,
+``dinv_program`` and the solve programs (super_numeric.solve_program) make
+those loops device programs, captured once into CUDA graphs and replayed
+on the card (utils/programs.py).
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ import torch
 
 from ..core.sparse import INDEX
 from ..utils.device import resolve_device, torch_dtype
-from .super_numeric import (NumericPlan, _a_sorted_maps, _index, _panels,
+from ..utils.programs import DeviceProgram, cached_program
+from .super_numeric import (NumericPlan, _device_amaps, _index, _panels,
                             _seg_lengths, assemble, cholesky_or_nan,
                             scatter_add_maps, segment_sum,
                             sorted_scatter_maps, syrk)
@@ -303,31 +307,46 @@ def _numeric_step(Np, Mb, W, L, K, syrk_bf16):
     return step
 
 
-def wave_numeric(vals, wp: WavePlan, dtype, syrk_bf16=False, device=None):
-    """The numeric factorization as the wave program: A-assembly into the
-    zero (wp.buf,) buffer, then the stream of waves in schedule order.
-    Returns the buffer on ``device`` (the card unless "cpu" is asked
-    for).  A block that is not positive definite comes out NaN, as in the
-    reference, for factorize_super's scan."""
+def wave_program(wp: WavePlan, dtype, syrk_bf16=False,
+                 device=None) -> DeviceProgram:
+    """The wave factorization as one device program, cached on the plan
+    per (dtype, syrk_bf16, device): the reference's
+    ``_wave_numeric_program`` (suitesparse_tpu/cholesky/wave.py:335).  Its
+    body is the A-assembly into the zero (wp.buf,) buffer, then the stream
+    of waves in schedule order."""
     if wp.solve_only:
         raise ValueError("wave plan was built solve_only; rebuild it with "
                          "NumericPlan.wave_plan()")
     dev = resolve_device(device)
     dt = torch_dtype(dtype)
-    ops = wp.arrays(dt, dev)
-    key = ("amaps", dev)
-    amaps = wp._cache.get(key)
-    if amaps is None:
-        a_src, a_dst = _a_sorted_maps(wp.plan.ss)
-        amaps = (_index(a_src, dev), _index(a_dst, dev))
-        wp._cache[key] = amaps
-    vals = torch.as_tensor(vals, dtype=dt, device=dev)
-    Lx = assemble(vals, amaps[0], amaps[1], wp.buf)
-    steps = [_numeric_step(Np, Mb, W, L, K, syrk_bf16)
-             for (Np, Mb, W, L, K, *_r) in wp.meta]
-    for cid, pos in wp.seq:
-        steps[cid](Lx, pos, ops[cid])
-    return Lx
+
+    def make():
+        a_src, a_dst = _device_amaps(wp._cache, wp.plan.ss, dev)
+        ops = wp.arrays(dt, dev)
+        steps = [_numeric_step(Np, Mb, W, L, K, syrk_bf16)
+                 for (Np, Mb, W, L, K, *_r) in wp.meta]
+        stream = [(steps[cid], pos, ops[cid]) for cid, pos in wp.seq]
+
+        def body(vals):
+            Lx = assemble(vals, a_src, a_dst, wp.buf)
+            for step, pos, cops in stream:
+                step(Lx, pos, cops)
+            return Lx
+        return body
+
+    return cached_program(wp._cache, ("wave", dt, bool(syrk_bf16), dev),
+                          make, dev)
+
+
+def wave_numeric(vals, wp: WavePlan, dtype, syrk_bf16=False, device=None):
+    """The numeric factorization as the wave program (``wave_program``: a
+    replay on the card, the body on the CPU).  Returns the buffer on
+    ``device`` (the card unless "cpu" is asked for), never shared with a
+    later call's.  A block that is not positive definite comes out NaN, as
+    in the reference, for factorize_super's scan."""
+    prog = wave_program(wp, dtype, syrk_bf16, device)
+    return prog(torch.as_tensor(vals, dtype=torch_dtype(dtype),
+                                device=prog.device))
 
 
 def _dinv_layout(wp: "WavePlan"):
@@ -373,6 +392,23 @@ def solve_dinv(wp: WavePlan, Lx: torch.Tensor) -> torch.Tensor:
         inv = _tri_inv_pow2(C)
         out[b0:b0 + inv.numel()] = inv.reshape(-1)
     return out
+
+
+def dinv_program(wp: WavePlan, dtype, device) -> DeviceProgram:
+    """``solve_dinv`` as a device program, cached on the plan per (dtype,
+    device) -- the reference's ``_build_dinv``
+    (suitesparse_tpu/cholesky/wave.py:396): the factor's panels (the flat
+    buffer's first ``plan.total`` entries, where every diagonal block
+    lies) in, the Dinv buffer out, once per factorization."""
+    dt = torch_dtype(dtype)
+    dev = torch.device(device)
+
+    def make():
+        wp.solve_arrays(dt, dev)
+        _dinv_layout(wp)
+        return lambda Lx: solve_dinv(wp, Lx)
+
+    return cached_program(wp._cache, ("dinv", dt, dev), make, dev)
 
 
 def _tri_apply(C, xc, transpose):

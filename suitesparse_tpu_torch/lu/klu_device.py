@@ -36,6 +36,7 @@ from ..core.common import Common, default_common
 from ..core.sparse import INDEX, SparseCSC, invert_permutation
 from ..core.status import SparseError, Status
 from ..utils.device import default_dtype, resolve_device, torch_dtype
+from ..utils.programs import DeviceProgram, cached_program
 from .klu import KLUNumeric, KLUSymbolic
 
 
@@ -247,29 +248,90 @@ def _lu_nopivot(M):
     return M, zero
 
 
+def klu_refactor_program(plan: KLUDevicePlan, S: int, dtype,
+                         device) -> DeviceProgram:
+    """The device refactor of S value sets as one device program, cached
+    on the plan per (S, dtype, device): av (S, nnz) -> (factors, Rs, ok),
+    factors[g] of shape (S, G_g, nb_g, nb_g)."""
+    dev = torch.device(device)
+
+    def make():
+        t = _plan_tensors(plan, dev)
+
+        def body(av):
+            sv, Rs = _scaled(plan, av, t)
+            factors = []
+            ok = torch.ones(S, dtype=torch.bool, device=av.device)
+            for grp, (src, dst) in zip(plan.groups, t["groups"]):
+                G, nb = len(grp.blocks), grp.nb
+                M = sv.new_zeros((S, G * nb * nb))
+                M[:, dst] = sv[:, src]
+                F, zero = _lu_nopivot(M.view(S, G, nb, nb))
+                ok &= ~zero
+                factors.append(F)
+            return factors, Rs, ok
+        return body
+
+    return cached_program(plan._cache, ("klu_refactor", int(S), dtype, dev),
+                          make, dev)
+
+
+def klu_solve_program(plan: KLUDevicePlan, S: int, k: int, dtype,
+                      device) -> DeviceProgram:
+    """The device solve of S value sets with k right-hand sides each as
+    one device program, cached on the plan per (S, k, dtype, device):
+    (Rs, av, X, *factors) -> x, X and x (S, n, k)."""
+    dev = torch.device(device)
+
+    def make():
+        t = _plan_tensors(plan, dev)
+
+        def body(Rs, av, X, *factors):
+            sv, _ = _scaled(plan, av, t)
+            X = (X / Rs[:, :, None])[:, t["p_final"]]
+            for blocks, off in t["levels"]:
+                for g, members, rows in blocks:
+                    nb = plan.groups[g].nb
+                    xb = X[:, rows].reshape(S, len(members), nb, -1)
+                    F = factors[g][:, members]
+                    if nb == 1:
+                        xb = xb / F[..., 0][..., None]
+                    else:
+                        xb = torch.linalg.solve_triangular(
+                            F, xb, upper=False, unitriangular=True)
+                        xb = torch.linalg.solve_triangular(F, xb, upper=True)
+                    X[:, rows] = xb.reshape(S, -1, X.shape[2])
+                # off-diagonal contributions from columns solved in this
+                # level
+                if off is not None:
+                    upd = sv[:, off["src"], None] * X[:, off["j"]]
+                    X[:, off["dst"]] -= segment_sum(
+                        upd.transpose(0, 1), off["lens"]).transpose(0, 1)
+            out = torch.zeros_like(X)
+            out[:, t["q"]] = X
+            return out
+        return body
+
+    return cached_program(plan._cache, ("klu_solve", int(S), int(k), dtype,
+                                        dev), make, dev)
+
+
 def klu_refactor_jit(plan: KLUDevicePlan, device=None):
     """Return the device refactor: avals (nnz,) -> (factors, Rs, ok).
 
     factors[g] has shape (G_g, nb_g, nb_g) -- L\\U packed per size group.
     A Monte-Carlo sweep passes avals (S, nnz) and gets every output with
-    a leading S axis (the reference's jax.vmap).  Runs on ``device`` (the
-    card when None; raises without one)."""
+    a leading S axis (the reference's jax.vmap).  Each call runs
+    ``klu_refactor_program`` for its S and dtype (the reference's
+    ``jax.jit(klu_refactor_jit(plan))``): a replay on the card, the body
+    on the CPU; its results are never shared with a later call's.  Runs on
+    ``device`` (the card when None; raises without one)."""
     dev = resolve_device(device)
 
     def refactor(avals):
         av, batched = _values(avals, dev)
-        t = _plan_tensors(plan, dev)
-        sv, Rs = _scaled(plan, av, t)
-        S = sv.shape[0]
-        factors = []
-        ok = torch.ones(S, dtype=torch.bool, device=dev)
-        for grp, (src, dst) in zip(plan.groups, t["groups"]):
-            G, nb = len(grp.blocks), grp.nb
-            M = sv.new_zeros((S, G * nb * nb))
-            M[:, dst] = sv[:, src]
-            F, zero = _lu_nopivot(M.view(S, G, nb, nb))
-            ok &= ~zero
-            factors.append(F)
+        prog = klu_refactor_program(plan, av.shape[0], av.dtype, dev)
+        factors, Rs, ok = prog(av)
         if not batched:
             return [F[0] for F in factors], Rs[0], ok[0]
         return factors, Rs, ok
@@ -285,15 +347,14 @@ def klu_solve_jit(plan: KLUDevicePlan, device=None):
     gather and a sorted segment sum onto unique rows (the
     klu_solve.c:207-219 loop, batched).  Unbatched b is (n,) or (n, k);
     with a sweep's (S, nnz) values, b is (n,) for every value set, or
-    (S, n) or (S, n, k)."""
+    (S, n) or (S, n, k).  Each call runs ``klu_solve_program`` for its S,
+    k and dtype."""
     dev = resolve_device(device)
     n = plan.n
 
     def solve(factors, Rs, avals, b):
         av, batched = _values(avals, dev)
-        t = _plan_tensors(plan, dev)
-        sv, _ = _scaled(plan, av, t)
-        S = sv.shape[0]
+        S = av.shape[0]
         bt = torch.as_tensor(b, device=dev)
         if not batched:
             factors = [F[None] for F in factors]
@@ -302,27 +363,9 @@ def klu_solve_jit(plan: KLUDevicePlan, device=None):
         elif bt.ndim == 1:
             bt = bt.expand(S, n)
         one_d = bt.ndim == 2
-        X = bt.reshape(S, n, -1).to(sv.dtype)
-        X = (X / Rs[:, :, None])[:, t["p_final"]]
-        for blocks, off in t["levels"]:
-            for g, members, rows in blocks:
-                nb = plan.groups[g].nb
-                xb = X[:, rows].reshape(S, len(members), nb, -1)
-                F = factors[g][:, members]
-                if nb == 1:
-                    xb = xb / F[..., 0][..., None]
-                else:
-                    xb = torch.linalg.solve_triangular(
-                        F, xb, upper=False, unitriangular=True)
-                    xb = torch.linalg.solve_triangular(F, xb, upper=True)
-                X[:, rows] = xb.reshape(S, -1, X.shape[2])
-            # off-diagonal contributions from columns solved in this level
-            if off is not None:
-                upd = sv[:, off["src"], None] * X[:, off["j"]]
-                X[:, off["dst"]] -= segment_sum(upd.transpose(0, 1),
-                                                off["lens"]).transpose(0, 1)
-        out = torch.zeros_like(X)
-        out[:, t["q"]] = X
+        X = bt.reshape(S, n, -1).to(av.dtype)
+        prog = klu_solve_program(plan, S, X.shape[2], av.dtype, dev)
+        out = prog(Rs, av, X, *factors)
         out = out.reshape(S, n) if one_d else out
         return out if batched else out[0]
 

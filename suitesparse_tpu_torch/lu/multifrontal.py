@@ -25,7 +25,9 @@ the front blocks go through torch.linalg's batched LU, whose LAPACK swap
 list is turned into the reference's row permutation on the device; every
 scatter goes through the plan's sorted/unique maps (a sorted segment sum
 folds duplicates, the final scatter hits each target once), so no atomics
-run and refactorizations are bit-identical on the card.
+run and refactorizations are bit-identical on the card.  ``umf_program``
+and ``umf_solve_program`` make them device programs, captured once into
+CUDA graphs and replayed on the card (utils/programs.py).
 """
 from __future__ import annotations
 
@@ -45,7 +47,9 @@ from ..cholesky.symbolic import Symbolic, analyze
 from ..cholesky.super_numeric import (NumericPlan, _index, _panels,
                                       _set_cols, _sub_rows, build_plan,
                                       segment_sum, sorted_scatter_maps)
-from ..utils.device import default_dtype, numpy_dtype, resolve_device
+from ..utils.device import (default_dtype, numpy_dtype, resolve_device,
+                            torch_dtype)
+from ..utils.programs import DeviceProgram, cached_program
 
 
 @dataclasses.dataclass
@@ -348,6 +352,41 @@ def _lu_run_levels(Lb, Ub, level_arrays, meta):
                  for li in range(len(meta)))
 
 
+# torch.linalg's LU takes MAGMA for some batched front shapes on the card
+# (e.g. 2 fronts of 512), and MAGMA's batched getrf cannot be captured in
+# a CUDA graph; cuSOLVER's can, so the LU programs run with cuSOLVER
+_LU_LIBRARY = "cusolver"
+
+
+def umf_program(S: UmfSymbolic, dtype, device) -> DeviceProgram:
+    """The numeric LU as one device program, cached on the symbolic's
+    plan per (dtype, device) -- the reference's ``_lu_run_levels`` program
+    (suitesparse_tpu/lu/multifrontal.py:334): the scaled, permuted values
+    (nnz,) in, (Lb, Ub, pivs) out: the assembly writes, then the level
+    loop."""
+    dt = torch_dtype(dtype)
+    dev = torch.device(device)
+
+    def make():
+        m = _device_maps(S, dev)
+        arrays = S.plan.arrays_segsum(dt, dev)
+        size = S.plan.total + 1
+
+        def body(vj):
+            # sorted+unique assembly sets
+            # (cholesky.super_numeric.sorted_scatter_maps)
+            Lb = vj.new_zeros(size)
+            Ub = vj.new_zeros(size)
+            Lb[m["dstL"]] = vj[m["srcL"]]
+            Ub[m["dstU"]] = vj[m["srcU"]]
+            pivs = _lu_run_levels(Lb, Ub, arrays, S.plan.meta)
+            return Lb, Ub, pivs
+        return body
+
+    return cached_program(S.plan._cache, ("umf_numeric", dt, dev), make, dev,
+                          library=_LU_LIBRARY)
+
+
 @dataclasses.dataclass
 class UmfNumeric:
     symbolic: UmfSymbolic
@@ -366,6 +405,7 @@ class UmfNumeric:
     # matched-diagonal column scaling (GESP two-sided equilibration);
     # the factored matrix is diag(1/Rs)[rows] A [cols] diag(1/Cs)
     Cs: Optional[np.ndarray] = None
+    _cache: dict = dataclasses.field(default_factory=dict)  # solve programs
 
     @property
     def ok(self) -> bool:
@@ -474,13 +514,7 @@ def umf_numeric(A: SparseCSC, S: UmfSymbolic,
     m = _device_maps(S, dev)
     vj = torch.as_tensor(B2.data.astype(dtype), device=dev)
     cm.toc("umf_values")
-    # sorted+unique assembly sets (cholesky.super_numeric.sorted_scatter_maps)
-    Lb = vj.new_zeros(S.plan.total + 1)
-    Ub = vj.new_zeros(S.plan.total + 1)
-    Lb[m["dstL"]] = vj[m["srcL"]]
-    Ub[m["dstU"]] = vj[m["srcU"]]
-    pivs = _lu_run_levels(Lb, Ub, S.plan.arrays_segsum(dtype, dev),
-                          S.plan.meta)
+    Lb, Ub, pivs = umf_program(S, dtype, dev)(vj)
     # singular: a NaN/Inf anywhere, or a zero/denormal pivot on diag(U)
     # (umfpack's singular warning), read in float64 as the reference does
     d = Lb[m["diag"]].abs().to(torch.float64)
@@ -578,6 +612,40 @@ def _lu_ltsolve_impl(Lb, x, pivs, level_arrays, meta, conj=False):
             xc = _gather_rows(xc, torch.argsort(pivs[li][bi], dim=1))
             _set_cols(x, xc, ops["c_src"], ops["c_dst"])
     return x
+
+
+_SOLVE_IMPLS = {"lsolve": _lu_lsolve_impl, "usolve": _lu_usolve_impl,
+                "ltsolve": _lu_ltsolve_impl, "utsolve": _lu_utsolve_impl}
+
+
+def umf_solve_program(num: "UmfNumeric", name: str, k: int,
+                      conj: bool = False) -> DeviceProgram:
+    """One of the four triangular solves (``name``: "lsolve", "usolve",
+    "ltsolve" or "utsolve"; ``conj`` for the two transposed ones) on the
+    numeric ``num`` for k right-hand sides, as a device program cached on
+    the numeric -- the reference's four jitted solve programs
+    (suitesparse_tpu/lu/multifrontal.py:484-561): z (n, k) in the factor's
+    dtype -> x (n, k)."""
+    S = num.symbolic
+    n = S.n
+    dev, dt = num.Lb.device, num.Lb.dtype
+
+    def make():
+        la = S.plan.solve_arrays(num.dtype, dev)
+        impl = _SOLVE_IMPLS[name]
+        args = ((num.Lb,) if name in ("lsolve", "ltsolve")
+                else (num.Lb, num.Ub))
+        extra = (conj,) if name in ("ltsolve", "utsolve") else ()
+
+        def body(z):
+            x = z.new_zeros((n + 1, z.shape[1]))
+            x[:n] = z
+            return impl(*args, x, num.pivs, la, S.plan.meta, *extra)[:n]
+        return body
+
+    return cached_program(num._cache, ("umf_" + name, bool(conj), dt,
+                                       int(k), dev), make, dev,
+                          library=_LU_LIBRARY)
 
 
 def _klu_escalate(num, A, bk, system, cm):
@@ -686,32 +754,23 @@ def umf_solve(num: UmfNumeric, b: np.ndarray, system: str = "A",
             x = _refine(solve_fn, x, bk, A, system, steps, num, cm)
         return x.reshape(-1) if one_d else x
 
-    dev = num.Lb.device
-    la = S.plan.solve_arrays(num.dtype, dev)
-    meta = S.plan.meta
-
-    def _pad(z):
-        x = num.Lb.new_zeros((n + 1, k))
-        x[:n] = torch.as_tensor(np.asarray(z), device=dev).to(num.Lb.dtype)
-        return x
-
-    def _host(x):
-        return x[:n].cpu().numpy().astype(host_dt)
+    def _run(name, z, conj=False):
+        """z (n, k) on the host through the solve program ``name``."""
+        prog = umf_solve_program(num, name, k, conj and is_c)
+        zt = torch.as_tensor(np.asarray(z), device=prog.device)
+        return prog(zt.to(num.Lb.dtype)).cpu().numpy().astype(host_dt)
 
     def _lsolve(z):
-        return _host(_lu_lsolve_impl(num.Lb, _pad(z), num.pivs, la, meta))
+        return _run("lsolve", z)
 
     def _usolve(z):
-        return _host(_lu_usolve_impl(num.Lb, num.Ub, _pad(z), num.pivs, la,
-                                     meta))
+        return _run("usolve", z)
 
     def _ltsolve(z, conj):
-        return _host(_lu_ltsolve_impl(num.Lb, _pad(z), num.pivs, la, meta,
-                                      conj and is_c))
+        return _run("ltsolve", z, conj)
 
     def _utsolve(z, conj):
-        return _host(_lu_utsolve_impl(num.Lb, num.Ub, _pad(z), num.pivs, la,
-                                      meta, conj and is_c))
+        return _run("utsolve", z, conj)
 
     Cs = num.Cs if num.Cs is not None else np.ones(n)
 

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import cd3d, omega
+from chip_smoke import cd3d, omega, tree_equal
 from suitesparse_tpu_torch.cholesky import (analyze, factorize_super,
                                             residual_norm, solve_super,
                                             super_symbolic)
@@ -504,3 +504,141 @@ def test_distributed_two_ranks_on_one_card(tmp_path):
             ref = c[key]
             err = np.abs(g[key].astype(np.float64) - ref).max()
             assert err <= tol * np.abs(ref).max(), (key, err)
+
+
+@pytest.fixture(scope="module")
+def card_programs():
+    """Every device program of the slice, prepared on the card through
+    the public entry points on small inputs: {name: (program, inputs)},
+    the inputs copies of the program's static buffers."""
+    _need_card()
+    from suitesparse_tpu_torch.cholesky.super_numeric import (
+        build_plan, factor_program)
+    from suitesparse_tpu_torch.io.generators import circuit_like
+    from suitesparse_tpu_torch.lu import (klu_analyze, klu_device,
+                                          klu_factor, umf_numeric,
+                                          umf_solve, umf_symbolic)
+    progs = {}
+
+    def take(name, cache):
+        for key, prog in cache.items():
+            if hasattr(prog, "static") and prog.prepared:
+                progs[f"{name} {key[0]} {key[1:-1]}"] = (
+                    prog, tuple(t.clone() for t in prog.static))
+
+    A = laplacian_3d(10)
+    b = np.random.default_rng(0).standard_normal((A.ncol, 4))
+    for opts in (dict(program="pf"), dict(program="pf", syrk_bf16=True),
+                 dict(program="pf", trsm_inv=False), dict(program="wave"),
+                 dict(program="unrolled")):
+        cm = default_common()
+        cm.cholesky.supernodal = "supernodal"
+        for k, v in opts.items():
+            setattr(cm.cholesky, k, v)
+        sym = analyze(A, cm)
+        ss = super_symbolic(A, sym, cm)
+        plan = build_plan(ss)
+        f = factorize_super(A, sym, ss, plan=plan, common=cm)
+        assert f.ok
+        for system in ("A", "LLt", "L", "Lt"):
+            solve_super(f, b[:, 0], system, cm)
+            solve_super(f, b, system, cm)
+        prog = factor_program(plan, cm, np.float32, "cuda")
+        progs[f"factor {opts}"] = (prog, tuple(t.clone()
+                                               for t in prog.static))
+        take(f"{opts}", f._cache)
+        if plan._wave is not None:
+            take(f"{opts} wave plan", plan._wave._cache)
+    cmu = default_common()
+    C = cd3d(8)
+    num = umf_numeric(C, umf_symbolic(C, cmu), cmu)
+    for system in ("A", "At"):
+        umf_solve(num, b[:C.ncol], system, refine=0)
+    take("umf", num.symbolic.plan._cache)
+    take("umf", num._cache)
+    K = circuit_like(300, seed=3)
+    ksym = klu_analyze(K)
+    kplan, refactor, solve = klu_device(K, ksym, klu_factor(K, ksym))
+    sweep = torch.as_tensor(K.data[None] * np.linspace(0.9, 1.1, 4)[:, None],
+                            dtype=torch.float32, device="cuda")
+    for av in (K.data, sweep):
+        fs, Rs, _ = refactor(av)
+        solve(fs, Rs, av, b[:K.ncol, 0])
+    take("klu", kplan._cache)
+    assert len(progs) >= 40
+    return progs
+
+
+@pytest.mark.gpu
+def test_program_replay_is_bit_identical_to_its_eager_body(card_programs):
+    """Each program's replay equals its body run eagerly on the same
+    inputs, bit for bit."""
+    for name, (prog, inputs) in card_programs.items():
+        assert prog.graph is not None and prog.nodes > 0, name
+        got = prog(*inputs)
+        want = prog.eager(*[t.clone() for t in inputs])
+        assert tree_equal(got, want), name
+
+
+@pytest.mark.gpu
+def test_program_bodies_never_wait_on_the_host(card_programs):
+    """torch.cuda.set_sync_debug_mode("error") around one eager run of each
+    captured body: none synchronizes with the host."""
+    for name, (prog, inputs) in card_programs.items():
+        prog.eager(*inputs)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            prog.eager(*inputs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_program_capture_failure_raises():
+    """A body that waits on the host (``.item()``) cannot be captured: the
+    call raises, names the program, and returns nothing; nothing falls
+    back to an eager run."""
+    _need_card()
+    from suitesparse_tpu_torch.utils.programs import DeviceProgram
+    prog = DeviceProgram("host_wait", ("host_wait", 1),
+                         lambda x: x * x.sum().item(), "cuda")
+    with pytest.raises(RuntimeError, match="host_wait.*capture failed"):
+        prog(torch.ones(8, device="cuda"))
+    assert prog.graph is None and not prog.prepared
+
+
+@pytest.mark.gpu
+def test_block_chol_launches_per_replay_and_no_aliasing(tmp_path):
+    """The pf program's capture records the plan's count of block_chol
+    launches, and every replay adds exactly that many; a second factor
+    leaves the first factor's buffer as it was; a replayed factor saves
+    and loads like any other."""
+    _need_card()
+    from chip_smoke import factor_shapes
+    from suitesparse_tpu_torch.utils import (load_super_factor,
+                                             save_super_factor)
+    A = laplacian_3d(12)
+    cm = default_common()
+    cm.cholesky.supernodal = "supernodal"
+    cm.cholesky.program = "pf"
+    sym = analyze(A, cm)
+    ss = super_symbolic(A, sym, cm)
+    before = kernels.block_chol.launches
+    f1 = factorize_super(A, sym, ss, common=cm)
+    want = sum(factor_shapes(f1.plan.pf_plan(cm)).values())
+    assert want > 0 and kernels.block_chol.launches - before == want
+    assert cm.info["factor_capture_time"] > 0
+    assert cm.info["factor_graph_nodes"] > want
+    keep = f1.Lx.clone()
+    A2 = type(A)(A.indptr, A.indices, A.data * 2.0, A.shape)
+    before = kernels.block_chol.launches
+    f2 = factorize_super(A2, sym, ss, plan=f1.plan, common=cm)
+    assert kernels.block_chol.launches - before == want
+    assert torch.equal(f1.Lx, keep) and not torch.equal(f1.Lx, f2.Lx)
+    save_super_factor(str(tmp_path / "f.npz"), f2)
+    back = load_super_factor(str(tmp_path / "f.npz"))
+    t = f2.plan.total
+    assert back.Lx.device.type == "cuda"
+    assert torch.equal(back.Lx[:t], f2.Lx[:t]) and back.minor == f2.minor
