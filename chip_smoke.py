@@ -68,7 +68,13 @@ once per plan into a CUDA graph, then replayed.  Each program's replay is
 timed in pairs against its eager body in this run (alternating which goes
 first), checked bit for bit against it, and reported with its warm-up and
 capture seconds, graph node count and graph pool; the refactor profiles
-are taken of both.
+are taken of both.  The solve programs are per pattern: 5 refactor ->
+solve rounds on lap3d_44 and cd3d_44 time them (a factor copied in, then
+replays) against the per-factor form (a capture for each factor).  Each
+distributed rank times its programs between the collectives against
+their eager bodies; PageRank and BFS run as loop programs of 1, 4, 8 and
+16 steps against the one-sync loops (host syncs counted); single spmv and
+spgemm applies are timed eager against replay.
 
 Output: one line per phase, then a ``{"kernels": [...]}`` line, the card's
 name and power limit (nvidia-smi), and as the last line
@@ -109,7 +115,14 @@ BUSY_TRACE_S = 0.05            # least host time a busy-time trace spans
 FRONT_MATRIX = "lap3d_44"
 REFINE_STEPS = 3
 REFACTOR_REPS = 5
+SOLVE_ROUNDS = 5               # refactor -> solve rounds of the two forms
+APPLY_REPS = 20                # pairs of a single spmv / spgemm apply
+LOOP_STEPS_TRIED = (1, 4, 8, 16)   # pagerank/bfs steps a program run
+DIST_PAIRS = 3                 # pairs of each rank program
+DIST_TOP_MIN = 512             # a top-front threshold that leaves runs of
+#                                replicated top waves (lap3d_28, P = 2)
 OPS_MATRIX = "lap3d_44"
+SOLVE_FORMS_MATRIX = "lap3d_44"
 GRAPH_N = 1_000_000
 # the [lu] phase: multifrontal LU (cd3d_44, randunsym_5000), a singular
 # case, and KLU's device twin on circuit_like(KLU_N) with a sweep of
@@ -120,6 +133,7 @@ LU_REFINE = 3
 LU_OMEGA_MAX = 1e-11           # after LU_REFINE float64 refinement steps
 LU_OMEGA_RAW_MAX = 1e-5        # the float32 factor's solve, unrefined
 LU_SEED = 7
+LU_FORMS_MATRIX = "cd3d_44"
 KLU_N = 4000
 KLU_SWEEP = 8
 KLU_SWEEP_REPS = 2             # pairs of the sweep (about 2 s a run)
@@ -518,14 +532,30 @@ def peak_gib(fn) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 2**30
 
 
-def pairs(name, prog, inputs, reps, want=None) -> dict:
+def sync_free(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error"): a body that
+    waits on the host raises."""
+    import torch
+
+    def run(*a):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return run
+
+
+def pairs(name, prog, inputs, reps, want=None, no_sync=False) -> dict:
     """One untimed round, then ``reps`` rounds of the program's eager
     body and its replay on the same inputs, alternating which runs first,
     each timed on the host clock ended by a sync; every result must equal
-    ``want`` (default: the first result) bit for bit."""
+    ``want`` (default: the first result) bit for bit.  ``no_sync``: the
+    eager body runs under ``sync_free``."""
     eager, replay = [], []
+    body = sync_free(prog.eager) if no_sync else prog.eager
     for r in range(reps + 1):
-        order = ((eager, prog.eager), (replay, prog))
+        order = ((eager, body), (replay, prog))
         for times, fn in (order if r % 2 == 0 else order[::-1]):
             t, out = host_time(lambda: fn(*inputs))
             if r:
@@ -538,6 +568,79 @@ def pairs(name, prog, inputs, reps, want=None) -> dict:
     return dict(eager_ms=float(np.median(eager)), eager_ms_all=eager,
                 replay_ms=float(np.median(replay)), replay_ms_all=replay,
                 bit_identical=True)
+
+
+def chain(progs, x):
+    """x through the programs (or functions) ``progs`` in turn."""
+    for p in progs:
+        x = p(x)
+    return x
+
+
+def solve_forms(name, rounds, refactor, bind, other, per_pattern, bodies_of,
+                rhs):
+    """``rounds`` refactorizations (``refactor(r)`` -> a factor), each
+    followed by its solves in two forms, in turns which goes first: per
+    pattern (``bind(factor)``, the copy in, timed alone, then the replays
+    of the programs ``per_pattern[k]``, chained, for each width k) and per
+    factor (new programs over the factor's own buffers, the bodies
+    ``bodies_of(factor, k)``: warm-up, capture and replay).  Each solution
+    of one form equals the other's and the per-pattern programs' eager
+    bodies (sync-free) bit for bit.  ``rhs`` {k: input}; the factor
+    ``other`` is bound before each round, so that every timed copy is a
+    real one."""
+    import torch
+    from suitesparse_tpu_torch.utils.programs import DeviceProgram
+    bind(other)
+    for k, ps in per_pattern.items():
+        chain(ps, rhs[k])              # every per-pattern program captured
+    rows = []
+    for r in range(rounds):
+        f = refactor(r)
+        bind(f)            # what a new factor pays once either way (Dinv)
+        bind(other)
+
+        def pattern():
+            t_copy, _ = host_time(lambda: bind(f))
+            t, xs = host_time(lambda: {k: chain(ps, rhs[k])
+                                       for k, ps in per_pattern.items()})
+            return dict(copy_ms=t_copy * 1e3, solve_ms=t * 1e3,
+                        total_ms=(t_copy + t) * 1e3), xs
+
+        def factor():
+            made = [DeviceProgram(f"{name}_per_factor", (name, k, i), body,
+                                  "cuda", library=ps[i].library)
+                    for k, ps in per_pattern.items()
+                    for i, body in enumerate(bodies_of(f, k))]
+            by_k = {}
+            for p in made:
+                by_k.setdefault(p.key[1], []).append(p)
+            t, xs = host_time(lambda: {k: chain(ps, rhs[k])
+                                       for k, ps in by_k.items()})
+            return dict(
+                total_ms=t * 1e3,
+                warmup_s=sum(p.warmup_s for p in made),
+                capture_s=sum(p.capture_s for p in made),
+                graph_nodes=sum(p.nodes for p in made),
+                graph_pool_gib=sum(graph_pool_bytes(p)
+                                   for p in made) / 2**30), xs
+
+        order = [("per_pattern", pattern), ("per_factor", factor)]
+        got = {nm: fn() for nm, fn in (order if r % 2 == 0
+                                       else order[::-1])}
+        for k, ps in per_pattern.items():
+            want = chain([sync_free(p.eager) for p in ps], rhs[k])
+            check(torch.equal(got["per_pattern"][1][k], want)
+                  and torch.equal(got["per_factor"][1][k], want),
+                  f"{name} round {r} k={k}: the two forms or the eager "
+                  f"body differ")
+        rows.append({nm: v[0] for nm, v in got.items()})
+        del got, f
+    med = {nm: {key: float(np.median([row[nm][key] for row in rows]))
+                for key in rows[0][nm]} for nm in rows[0]}
+    return dict(rounds=rows, median=med,
+                speedup=med["per_factor"]["total_ms"]
+                / med["per_pattern"]["total_ms"])
 
 
 def run_matrix(name: str, reps: int):
@@ -553,8 +656,8 @@ def run_matrix(name: str, reps: int):
     from suitesparse_tpu_torch.cholesky.kernels import block_chol
     from suitesparse_tpu_torch.cholesky.pf import pf_program
     from suitesparse_tpu_torch.cholesky.super_numeric import (
-        build_plan, solve_program)
-    from suitesparse_tpu_torch.cholesky.wave import dinv_program
+        SuperFactor, _solve_body, bind_solve_factor, build_plan,
+        solve_program)
     from suitesparse_tpu_torch.core.common import default_common
     from suitesparse_tpu_torch.io.generators import (symmetrize_upper,
                                                      synthetic_standin)
@@ -617,25 +720,42 @@ def run_matrix(name: str, reps: int):
                                   pf_pairs["eager_ms"], PROFILE_DIR)
     log("[profile] " + json.dumps(prof_eager))
 
-    # the solves, in pairs: A with perm and invperm inside the program
+    # the solves, in pairs: A with perm and invperm inside the program;
+    # one program per pattern, reading the bound factor
     b1 = torch.ones((n, 1), dtype=torch.float32, device="cuda")
     b32 = torch.as_tensor(np.random.default_rng(1).standard_normal((n, 32)),
                           dtype=torch.float32, device="cuda")
     t_dinv, _ = host_time(lambda: solve_super(f, np.ones(n), "A", cm))
-    dprog = dinv_program(plan.wave_plan(solve_only=True), torch.float32,
-                         f.Lx.device)
-    dinv = dict(pairs(f"{name} dinv", dprog, (f.Lx[:plan.total],), 1,
-                      want=f._dinv),
-                **program_stats(dprog))
+    R = bind_solve_factor(f, cm)
+    dinv = dict(pairs(f"{name} dinv", R.dinv, (), 1, want=f._dinv,
+                      no_sync=True), **program_stats(R.dinv))
     solves = {}
     for k, bk in ((1, b1), (32, b32)):
-        sp = solve_program(f, "A", k, cm)
+        sp = solve_program(plan, "A", k, torch.float32, "cuda", cm)
         sp.prepare(bk)
         check(sp.graph is not None, f"{name}: solve k={k} not captured")
-        solves[k] = dict(pairs(f"{name} solve k={k}", sp, (bk,), reps),
-                         **program_stats(sp))
+        solves[k] = dict(pairs(f"{name} solve k={k}", sp, (bk,), reps,
+                               no_sync=True), **program_stats(sp))
     ms1, ms32 = solves[1]["replay_ms"], solves[32]["replay_ms"]
-    xdev = solve_program(f, "A", 1, cm)(b1)[:, 0]
+    resident = (R.Lx.numel() + R.Dv.numel()) * 4 + 2 * n * 8
+    forms = None
+    if name == SOLVE_FORMS_MATRIX:
+        perm = torch.as_tensor(f.perm, device="cuda")
+        invperm = torch.argsort(perm)
+        forms = solve_forms(
+            f"{name} solve A", SOLVE_ROUNDS,
+            lambda r: SuperFactor(plan=plan, Lx=prog(vd * (1.0 + 0.25 * r)),
+                                  perm=f.perm, minor=n, dtype=np.float32),
+            lambda g: bind_solve_factor(g, cm), f,
+            {k: [solve_program(plan, "A", k, torch.float32, "cuda", cm)]
+             for k in (1, 32)},
+            lambda g, k: [_solve_body(plan, "A", True, cm, g.Lx, g._dinv,
+                                      perm, invperm)],
+            {1: b1, 32: b32})
+        forms["resident_gib"] = resident / 2**30
+        log(f"[{name}] solve forms: {json.dumps(forms)}")
+        bind_solve_factor(f, cm)
+    xdev = solve_program(plan, "A", 1, torch.float32, "cuda", cm)(b1)[:, 0]
     check(tuple(xdev.shape) == (n,) and bool(torch.isfinite(xdev).all()),
           f"{name}: device solve shape/finiteness")
     b = np.ones(n)
@@ -708,6 +828,7 @@ def run_matrix(name: str, reps: int):
                eager_idle_share=prof_eager["idle_share"],
                factor_gflops=sym.flops / t_refactor / 1e9,
                dinv_and_first_solve_ms=t_dinv * 1e3, dinv=dinv,
+               solve_resident_gib=resident / 2**30, solve_forms=forms,
                solve1_ms=ms1,
                solve32_ms=ms32, solves=solves,
                solve1_gflops=4 * sym.lnz / (ms1 * 1e-3) / 1e9,
@@ -992,6 +1113,14 @@ def run_ops(A, S):
         row[f"{name}_rel_err"] = e
     check(np.array_equal(prods[0], prods[1]),
           "spgemm and ssmult (the same program) are not bit-identical")
+    from suitesparse_tpu_torch.ops.spgemm import cached_plan
+    applies = dict(spmv_k1=spmv_pairs(A, Xs[32][:, 0].contiguous()),
+                   spmm_k32=spmv_pairs(A, Xs[32]),
+                   spgemm_AA=spgemm_pairs(cached_plan(A, A), A.data, A.data,
+                                          "times"))
+    log(f"[ops] single applies on {OPS_MATRIX}'s pattern, eager against "
+        f"replay: {json.dumps(applies)}")
+    row["applies"] = applies
     x = rng.uniform(-1, 1, n).astype(np.float32)
     t, y = host_time(lambda: mxv(A, x, "min_plus", device="cuda"))
     Sr = A.to_scipy().tocsr()
@@ -1052,36 +1181,186 @@ def pagerank_oracle(A, damping=0.85, tol=1e-9, max_iter=30):
     return r, it
 
 
+def host_syncs(fn):
+    """(fn()'s result, the number of times it made the host wait for the
+    card), counted by torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+    import torch
+    sync()
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in got)
+
+
+def one_sync_pagerank(rows, cols, w, n, tol, max_iter, damping=0.85):
+    """PageRank's loop with one host read a step (the port's form before
+    its loop programs): what every program of K steps must give bit for
+    bit.  Returns (rank, iterations)."""
+    import torch
+    from suitesparse_tpu_torch.graphblas.algorithms import _pagerank_step
+    lengths = torch.bincount(cols, minlength=n)
+    r = torch.full((n,), 1.0 / n, dtype=w.dtype, device=w.device)
+    it, above = 0, True
+    while above and it < max_iter:
+        rnew = _pagerank_step(rows, cols, w, lengths, n, damping, r)
+        above = bool((rnew - r).abs().sum() > tol)
+        r, it = rnew, it + 1
+    return r, it
+
+
+def one_sync_bfs(rows, cols, n, source):
+    """BFS's pull loop with one host read a step; (levels, steps)."""
+    import torch
+    from suitesparse_tpu_torch.graphblas.core import segment_reduce
+    dev = rows.device
+    level = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    level[source] = 0
+    frontier = torch.zeros(n, dtype=torch.bool, device=dev)
+    frontier[source] = True
+    depth = 1
+    while bool(frontier.any()) and depth <= n:
+        hit = segment_reduce("max", frontier[rows].to(torch.int32), cols, n,
+                             indices_are_sorted=True) > 0
+        frontier = hit & (level < 0)
+        level = torch.where(frontier, torch.tensor(
+            depth, dtype=torch.int32, device=dev), level)
+        depth += 1
+    return level, depth - 1
+
+
+def apply_pairs(name, body, inputs) -> dict:
+    """A single apply (the reference jits _spmv_impl and _spgemm_device)
+    as a device program made here: its eager body against its replay (the
+    inputs copied in, the result cloned), APPLY_REPS pairs, bit for bit,
+    the body sync-free."""
+    from suitesparse_tpu_torch.utils.programs import DeviceProgram
+    prog = DeviceProgram(name, (name,), body, "cuda")
+    prog.prepare(*inputs)
+    out = dict(pairs(name, prog, inputs, APPLY_REPS, no_sync=True),
+               graph_nodes=prog.nodes)
+    out["replay_wins"] = out["replay_ms"] < out["eager_ms"]
+    del out["eager_ms_all"], out["replay_ms_all"]
+    return out
+
+
+def spmv_pairs(A, x) -> dict:
+    """spmv_program's apply (plus_times) on A's pattern, x (n,) or (n, k):
+    eager against replay (apply_pairs)."""
+    import torch
+    from suitesparse_tpu_torch.ops.spmv import _row_program, _spmv_impl
+    rp = _row_program(A)
+    arrays = tuple(torch.as_tensor(a, device="cuda")
+                   for a in (rp.rows, rp.cols, rp.gat)) + (
+        torch.as_tensor(np.bincount(rp.rows, minlength=rp.m),
+                        device="cuda"),)
+    vals = torch.as_tensor(A.data if A.data is not None else np.ones(A.nnz),
+                           dtype=x.dtype, device="cuda")
+    return apply_pairs(
+        "spmv", lambda v, xx: _spmv_impl(v, xx, arrays, rp.m, "times",
+                                         "plus"), (vals, x))
+
+
+def spgemm_pairs(plan, av, bv, mult) -> dict:
+    """spgemm_apply's product (plus_<mult>) on a cached plan: eager
+    against replay (apply_pairs)."""
+    import torch
+    from suitesparse_tpu_torch.ops.spgemm import _spgemm_device
+    dev = torch.device("cuda")
+    maps = plan.device_maps(dev)
+    a = torch.as_tensor(av, device=dev)
+    b = torch.as_tensor(bv, device=dev)
+    return apply_pairs(
+        "spgemm", lambda x, y: _spgemm_device(x, y, maps, mult, "plus",
+                                              plan.nnz), (a, b))
+
+
+def loop_programs(G, tol, max_iter):
+    """PageRank and BFS (from 0) on G through loop programs of each
+    LOOP_STEPS_TRIED steps a run, against the one-sync loops: the same
+    iteration, ranks and levels bit for bit, the host syncs a run (the
+    program captured) at most ceil(iterations / K) + 1, each timed over
+    REFACTOR_REPS runs; and the one-sync loops' own times."""
+    import torch
+    from suitesparse_tpu_torch.graphblas import algorithms as alg
+    dev = torch.device("cuda")
+    n = G.shape[0]
+    alg._pagerank(G, 0.85, tol, max_iter, dev)
+    rows, cols, w, _ = G._loop_programs[("pagerank_arrays", torch.float32,
+                                         dev)]
+    out = dict(tol=tol, max_iter=max_iter)
+    for kind in ("pagerank", "bfs"):
+        if kind == "pagerank":
+            ref = lambda: one_sync_pagerank(rows, cols, w, n, tol, max_iter)
+            run = lambda K: alg._pagerank(G, 0.85, tol, max_iter, dev, K)
+        else:
+            ref = lambda: one_sync_bfs(rows, cols, n, 0)
+            run = lambda K: alg._bfs_loop(rows, cols, n, 0, K,
+                                          G._loop_programs)
+        ref()
+        t_ref = [host_time(ref)[0] * 1e3 for _ in range(REFACTOR_REPS)]
+        (want, iters), syncs_ref = host_syncs(ref)
+        row = dict(iterations=iters, one_sync_ms=float(np.median(t_ref)),
+                   one_sync_ms_all=t_ref, one_sync_host_syncs=syncs_ref)
+        for K in LOOP_STEPS_TRIED:
+            run(K)                                  # capture
+            t = [host_time(lambda: run(K))[0] * 1e3
+                 for _ in range(REFACTOR_REPS)]
+            # a run as the entry point makes it: the result copied out
+            (got, it), syncs = host_syncs(
+                lambda: (lambda o: (o[0].cpu(), o[1]))(run(K)))
+            check(it == iters and torch.equal(got, want.cpu()),
+                  f"{kind} K={K}: iteration {it} (one-sync {iters}) or "
+                  f"values differ")
+            check(syncs <= -(-it // K) + 1,
+                  f"{kind} K={K}: {syncs} host syncs for {it} iterations")
+            row[f"K{K}"] = dict(ms=float(np.median(t)), ms_all=t,
+                                host_syncs=syncs)
+        row["fastest_K"] = min(LOOP_STEPS_TRIED,
+                               key=lambda K: row[f"K{K}"]["ms"])
+        out[kind] = row
+    return out
+
+
 def run_graph():
-    """PageRank, BFS and triangle counting at n = GRAPH_N on the card."""
+    """PageRank, BFS and triangle counting at n = GRAPH_N on the card;
+    the loop programs against the one-sync loops; a single spmv and the
+    triangle SpGEMM apply, eager against replay."""
     import scipy.sparse as sp
+    import torch
     from suitesparse_tpu_torch.graphblas import (bfs_levels, pagerank,
                                                  triangle_count)
+    from suitesparse_tpu_torch.graphblas import algorithms as alg
     n = GRAPH_N
     t_gen, G = host_time(lambda: ring_chords(n, 21))
     row = dict(n=n, ring_chords_nnz=G.nnz, gen_s=t_gen)
     t_pr, pr = host_time(lambda: pagerank(G, max_iter=30, device="cuda"))
     want, iters = pagerank_oracle(G)
     e = rel_err_np(pr.astype(np.float64), want)
-    check(np.array_equal(pagerank(G, max_iter=30, device="cuda"), pr),
-          "a second pagerank is not bit-identical")
-    # the iteration the port stopped at: the least cap that gives the same
-    # ranks (a cap at or past the stop changes nothing), by bisection
-    lo, hi = 1, 30
-    while lo < hi:
-        mid = (lo + hi) // 2
-        if np.array_equal(pagerank(G, max_iter=mid, device="cuda"), pr):
-            hi = mid
-        else:
-            lo = mid + 1
-    port_iters = lo
+    t_pr2, pr2 = host_time(lambda: pagerank(G, max_iter=30, device="cuda"))
+    check(np.array_equal(pr2, pr), "a second pagerank is not bit-identical")
+    # the iteration the port stopped at: the program's counter
+    _, port_iters = alg._pagerank(G, 0.85, 1e-9, 30, torch.device("cuda"))
     check(pr.shape == (n,) and abs(float(pr.sum()) - 1.0) <= 1e-3,
           f"pagerank sum {pr.sum()}")
     check(e <= 1e-5, f"pagerank vs numpy power iteration: {e:.2e}")
     log(f"[graph] ring+chords n={n} nnz={G.nnz}: pagerank {t_pr:.3f} s "
-        f"({port_iters} iterations = host syncs; the float64 oracle "
-        f"stopped at {iters}), sum {pr.sum():.6f}, "
-        f"{e:.3e} relative to numpy float64; a second run bit-identical")
+        f"(arrays, capture), {t_pr2 * 1e3:.1f} ms again; {port_iters} "
+        f"iterations by the program's counter (the float64 oracle "
+        f"stopped at {iters}), sum {pr.sum():.6f}, {e:.3e} relative to "
+        f"numpy float64; a second run bit-identical")
+    loops = loop_programs(G, 1e-9, 30)
+    check(loops["pagerank"]["iterations"] == port_iters,
+          "pagerank iterations of the one-sync loop and the program differ")
+    log(f"[graph] loop programs, steps a run {LOOP_STEPS_TRIED} (default "
+        f"{alg.LOOP_STEPS}): {json.dumps(loops)}")
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(n),
+                        dtype=torch.float32, device="cuda")
+    applies = dict(spmv_ring_chords=spmv_pairs(G, x))
     t_dev, lv = host_time(lambda: bfs_levels(G, 0, "device",
                                                    device="cuda"))
     t_push, lp = host_time(lambda: bfs_levels(G, 0, "push"))
@@ -1089,7 +1368,8 @@ def run_graph():
           "bfs device differs from push")
     check(bool((lv >= 0).all()), "bfs: the ring graph is connected")
     log(f"[graph] bfs from 0: device {t_dev:.3f} s, push {t_push:.3f} s, "
-        f"identical, depth {int(lv.max())} (one host sync a level)")
+        f"identical, depth {int(lv.max())} (one host sync per "
+        f"{alg.LOOP_STEPS} levels)")
     H = symmetric_random(n, 23)
     t_tc, tc = host_time(lambda: triangle_count(H, device="cuda"))
     t_tc2, tc2 = host_time(lambda: triangle_count(H, device="cuda"))
@@ -1099,11 +1379,20 @@ def run_graph():
     log(f"[graph] symmetric random n={n} nnz={H.nnz}: triangle_count "
         f"{tc} = scipy's; {t_tc:.2f} s with the host plan, {t_tc2:.2f} s "
         f"with the plan cached")
+    from suitesparse_tpu_torch.graphblas.core import select
+    from suitesparse_tpu_torch.ops.spgemm import cached_plan
+    Lt = select(H, lambda r, c, v: r > c)
+    applies["spgemm_triangles"] = spgemm_pairs(
+        cached_plan(Lt, Lt.transpose(), mask=Lt), np.ones(Lt.nnz),
+        np.ones(Lt.nnz), "pair")
+    log(f"[graph] single applies, eager against replay: "
+        f"{json.dumps(applies)}")
     row.update(pagerank_s=t_pr, pagerank_iters=port_iters,
                pagerank_oracle_iters=iters, pagerank_rel_err=e,
                bfs_device_s=t_dev, bfs_push_s=t_push, bfs_depth=int(lv.max()),
                symmetric_nnz=H.nnz, triangles=tc, triangle_s=t_tc,
-               triangle_cached_s=t_tc2)
+               triangle_cached_s=t_tc2, pagerank_again_s=t_pr2,
+               loop_programs=loops, applies=applies)
     return row
 
 
@@ -1595,6 +1884,29 @@ def run_lu_matrix(name, A) -> dict:
         solves[system] = dict(solve_raw_s=t_raw, omega_raw=w_raw,
                               solve_refined_s=t_sol, omega_steps=steps,
                               omega_final=w)
+    forms = None
+    if name == LU_FORMS_MATRIX:
+        # the A system's triangular pair: U \ (L \ z), per pattern against
+        # per numeric
+        from suitesparse_tpu_torch.lu.multifrontal import (
+            _umf_solve_body, bind_umf_numeric, umf_solve_program)
+        rz = np.random.default_rng(LU_SEED + 1)
+        z = {k: torch.as_tensor(rz.standard_normal((n, k)),
+                                dtype=torch.float32, device="cuda")
+             for k in (1, 32)}
+        forms = solve_forms(
+            f"{name} lsolve+usolve", SOLVE_ROUNDS,
+            lambda r: umf_numeric(type(A)(A.indptr, A.indices,
+                                          A.data * (1.0 + 0.25 * r),
+                                          A.shape), S, default_common()),
+            bind_umf_numeric, num,
+            {k: [umf_solve_program(S, nm, k, False, torch.float32, "cuda")
+                 for nm in ("lsolve", "usolve")] for k in (1, 32)},
+            lambda g, k: [_umf_solve_body(S, nm, False, g.Lb, g.Ub, g.pivs)
+                          for nm in ("lsolve", "usolve")], z)
+        R = bind_umf_numeric(num)
+        forms["resident_gib"] = (R.Lb.numel() + R.Ub.numel()) * 4 / 2**30
+        log(f"[lu] {name} solve forms: {json.dumps(forms)}")
     return dict(matrix=name, n=n, nnz=int(A.nnz), strategy=S.strategy,
                 plan_total=int(plan.total), buckets=int(plan.nbuckets),
                 levels=len(plan.levels), umf_symbolic_s=t_sym,
@@ -1607,6 +1919,7 @@ def run_lu_matrix(name, A) -> dict:
                 program_pairs=lu_pairs,
                 eager_device_busy_ms=prof_eager["device_busy_ms"],
                 eager_idle_share=prof_eager["idle_share"], solves=solves,
+                solve_forms=forms,
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
@@ -2109,7 +2422,26 @@ def dist_check(name, res) -> dict:
     med = {k.replace("dist_", "").replace("_time", "_ms"):
            [float(np.median(r["refactor_times_s"][k])) * 1e3 for r in rows]
            for k in r0["refactor_times_s"]}
+    # each rank program against its eager body (every top-wave run summed)
+    programs = None
+    if "program_pairs" in r0:
+        programs = {}
+        for r in rows:
+            check(all(p["replayed"] for p in r["program_pairs"]),
+                  f"[dist] {name} rank {r['rank']}: a program not replayed")
+        for p in r0["program_pairs"]:
+            programs.setdefault(p["program"], dict(
+                count=0, **{k: [0.0] * len(rows) for k in (
+                    "eager_ms", "replay_ms", "warmup_s", "capture_s",
+                    "graph_nodes")}))["count"] += 1
+        for i, r in enumerate(rows):
+            for p in r["program_pairs"]:
+                d = programs[p["program"]]
+                for k in ("eager_ms", "replay_ms", "warmup_s", "capture_s",
+                          "graph_nodes"):
+                    d[k][i] += p[k]
     return dict(
+        programs=programs,
         matrix=name, n=n, ranks=len(rows), backend=res[0]["backend"],
         plan_s=[r["plan_s"] for r in rows],
         first_factor_s=r0["first_factor_s"], refactors=len(
@@ -2147,7 +2479,8 @@ def run_dist(probes, front) -> dict:
     job = dict(backend="gloo", device="cuda", cases=[
         dict(kind="dist", name=lap, gen="laplacian_3d", arg=DIST_K,
              dtype="float32", reps=REFACTOR_REPS, refine=REFINE_STEPS,
-             check_wave=True, seed=DIST_SEED, model=model),
+             check_wave=True, seed=DIST_SEED, model=model,
+             pairs=DIST_PAIRS),
         dict(kind="block_cyclic", N=DIST_BC_N, nb=DIST_BC_NB, seed=DIST_SEED,
              dtype="float32", on_device=True)])
     t0 = time.perf_counter()
@@ -2168,6 +2501,12 @@ def run_dist(probes, front) -> dict:
         dict(kind="dist", name=lap2, gen="laplacian_3d", arg=DIST_P2_K,
              dtype="float32", reps=REFACTOR_REPS, refine=REFINE_STEPS,
              check_wave=True, seed=DIST_SEED),
+        # a top-front threshold of 512: the replicated top waves (Np 256)
+        # run as one program between the fanned fronts
+        dict(kind="dist", name=lap2 + "_top", gen="laplacian_3d",
+             arg=DIST_P2_K, dtype="float32", reps=REFACTOR_REPS,
+             refine=REFINE_STEPS, check_wave=True, seed=DIST_SEED,
+             root_2d_min=DIST_TOP_MIN, pairs=DIST_PAIRS),
         dict(kind="notposdef", gen="laplacian_3d", arg=DIST_INDEF_K,
              shift=-3.0, dtype="float32", single=True),
         dict(kind="level_step", gen="laplacian_3d", arg=DIST_LEVEL_K,
@@ -2177,6 +2516,11 @@ def run_dist(probes, front) -> dict:
     out[lap2] = dist_check(lap2, res2)
     out[lap2]["launch_s"] = time.perf_counter() - t0
     log(f"[dist] {json.dumps(out[lap2])}")
+    out[lap2 + "_top"] = dist_check(lap2 + "_top", res2)
+    check(out[lap2 + "_top"]["programs"].get("dist_top", {}).get("count", 0)
+          >= 1,
+          f"[dist] {lap2}_top: no run of replicated top waves")
+    log(f"[dist] {json.dumps(out[lap2 + '_top'])}")
     npd = res2[0]["notposdef"]
     check(all(r["notposdef"]["status"] == 1 for r in res2)
           and npd["single_status"] == 1

@@ -36,7 +36,8 @@ from ..core.sparse import INDEX, SparseCSC
 from ..core.status import Status
 from ..utils.device import (default_dtype, numpy_dtype, resolve_device,
                             torch_dtype)
-from ..utils.programs import DeviceProgram, cached_program
+from ..utils.programs import (Binding, DeviceProgram, cached_program,
+                              program_device)
 from .supernodal import SuperSymbolic
 from .symbolic import Symbolic
 
@@ -479,7 +480,6 @@ class SuperFactor:
     minor: int
     dtype: object               # numpy float dtype of Lx
     _dinv: object = None        # per-factor inverted diagonal blocks
-    _cache: dict = dataclasses.field(default_factory=dict)  # solve programs
 
     @property
     def n(self) -> int:
@@ -664,78 +664,155 @@ _SOLVE_SYSTEMS = {"A": "A", "LLt": "LLt", "LDLt": "LLt", "L": "L",
                   "Lt": "Lt"}
 
 
-def solve_program(f: SuperFactor, system: str, k: int,
+def _solve_wave_plan(plan: NumericPlan, common: Optional[Common]):
+    """The wave plan the solves walk.  pf factors reuse the wave solve;
+    only the solve maps are needed, so a solve-only plan (or a full one
+    already built) serves every later solve too.  (The reference asks for
+    the full plan from the second solve on, which rebuilds the factor's
+    extend-add maps: seconds at lap3d_44 for maps the solve never reads.)"""
+    return plan.wave_plan(solve_only=plan.resolve_program(common) == "pf")
+
+
+def _solve_body(plan: NumericPlan, system: str, wave: bool,
+                common: Optional[Common], Lx, Dv, perm, invperm):
+    """The solve of ``system`` over the panel buffer ``Lx`` (its first
+    plan.total entries), the inverted diagonal blocks ``Dv`` (wave route)
+    and the permutation ``perm``/``invperm`` (device index tensors): a
+    function b (n, k) -> x (n, k)."""
+    n = plan.n
+    dt, dev = Lx.dtype, Lx.device
+    if wave:
+        from .wave import _dinv_layout, wave_lsolve, wave_ltsolve
+        wp = _solve_wave_plan(plan, common)
+        wp.solve_arrays(dt, dev)
+        _dinv_layout(wp)
+        xrows = n + wp.xpad
+
+        def lsolve(x):
+            return wave_lsolve(wp, Lx, x, Dv)
+
+        def ltsolve(x):
+            return wave_ltsolve(wp, Lx, x, Dv)
+    else:
+        xrows = n + 1
+        la = plan.solve_arrays(dt, dev)
+
+        def lsolve(x):
+            return _lsolve_impl(Lx, x, la, plan.meta)
+
+        def ltsolve(x):
+            return _ltsolve_impl(Lx, x, la, plan.meta)
+
+    def body(b):
+        x = b.new_zeros((xrows, b.shape[1]))
+        x[:n] = b[perm] if system == "A" else b
+        if system != "Lt":
+            x = lsolve(x)
+        if system != "L":
+            x = ltsolve(x)
+        return x[invperm] if system == "A" else x[:n]
+    return body
+
+
+@dataclasses.dataclass(eq=False)
+class SolveFactor:
+    """The factor that a plan's solve programs read, one per route, dtype
+    and device, cached on the plan: the panels (the flat buffer's first
+    ``plan.total`` entries, where every panel lies), the inverted diagonal
+    blocks (wave route; ``dinv`` builds them from ``Lx``) and the
+    permutation.  ``bind_solve_factor`` copies a factor in; ``bound``
+    says whose values these are."""
+
+    Lx: torch.Tensor
+    Dv: Optional[torch.Tensor]
+    perm: torch.Tensor
+    invperm: torch.Tensor
+    dinv: Optional[DeviceProgram]
+    perm_host: Optional[np.ndarray] = None
+    bound: Binding = dataclasses.field(default_factory=Binding)
+
+    def holds(self, f: SuperFactor) -> bool:
+        return self.bound.holds(f, f.Lx)
+
+
+def _solve_factor(plan: NumericPlan, wave: bool, dt: torch.dtype,
+                  dev: torch.device,
+                  common: Optional[Common]) -> SolveFactor:
+    key = ("solve_factor", wave, dt, dev)
+    got = plan._cache.get(key)
+    if got is None:
+        Lx = torch.zeros(plan.total, dtype=dt, device=dev)
+        Dv = dinv = None
+        if wave:
+            from .wave import _dinv_layout, dinv_program
+            wp = _solve_wave_plan(plan, common)
+            Dv = torch.zeros(max(_dinv_layout(wp)[1], 1), dtype=dt,
+                             device=dev)
+            dinv = dinv_program(wp, Lx)
+        idx = torch.zeros(plan.n, dtype=torch.int64, device=dev)
+        got = plan._cache[key] = SolveFactor(Lx=Lx, Dv=Dv, perm=idx,
+                                             invperm=idx.clone(), dinv=dinv)
+    return got
+
+
+def bind_solve_factor(f: SuperFactor,
+                      common: Optional[Common] = None) -> SolveFactor:
+    """Make ``f`` the factor that its plan's solve programs read (for its
+    route, dtype and device) and return the plan's ``SolveFactor``.  The
+    panels, the inverted diagonal blocks (built once per factor, kept on
+    it) and the permutation are copied in only when another factor, or
+    other values, are there: repeated solves on one factor copy nothing."""
+    plan = f.plan
+    wave = plan.use_wave(common)
+    dev, dt = f.Lx.device, f.Lx.dtype
+    R = _solve_factor(plan, wave, dt, dev, common)
+    if R.holds(f):
+        return R
+    R.bound.clear()
+    R.Lx.copy_(f.Lx[:plan.total])
+    if wave:
+        if f._dinv is None:
+            f._dinv = R.dinv()
+        R.Dv.copy_(f._dinv)
+    if R.perm_host is None or not np.array_equal(R.perm_host, f.perm):
+        R.perm.copy_(_index(f.perm, dev))
+        R.invperm.copy_(_index(np.argsort(f.perm), dev))
+        R.perm_host = np.array(f.perm)
+    R.bound.set(f, f.Lx)
+    return R
+
+
+def solve_program(plan: NumericPlan, system: str, k: int, dtype, device,
                   common: Optional[Common] = None) -> DeviceProgram:
     """The device program of one solve system ("A", "LLt", "L" or "Lt")
-    on the factor ``f`` for k right-hand sides, cached on the factor (the
-    reference's jitted lsolve/ltsolve programs, suitesparse_tpu/cholesky/
-    super_numeric.py:550-572 and wave.py:512-556): b (n, k) in the factor's
-    dtype -> x (n, k).  "A" applies P and P' inside the program.  pf and
-    wave factors solve over the waves, with the inverted diagonal blocks
-    built once per factor (``wave.dinv_program``); unrolled factors over
-    the levels."""
-    plan = f.plan
-    n = plan.n
-    dev, dt = f.Lx.device, f.Lx.dtype
+    for k right-hand sides, one per (plan, system, k, dtype, device) and
+    cached on the plan, as the reference compiles its lsolve/ltsolve
+    programs once per pattern (suitesparse_tpu/cholesky/
+    super_numeric.py:554-575 and wave.py:517-559): b (n, k) -> x (n, k).
+    It reads the factor bound by ``bind_solve_factor`` (its panels come in
+    as data, as the reference's ``Lx`` argument).  "A" applies P and P'
+    inside the program.  pf and wave factors solve over the waves with the
+    factor's inverted diagonal blocks; unrolled factors over the levels."""
+    dev = program_device(resolve_device(device))
+    dt = torch_dtype(dtype)
     wave = plan.use_wave(common)
 
     def make():
-        if wave:
-            from .wave import (_dinv_layout, dinv_program, wave_lsolve,
-                               wave_ltsolve)
-            # pf factors reuse the wave solve; only the solve maps are
-            # needed, so a solve-only plan (or a full one already built)
-            # serves every later solve too.  (The reference asks for the
-            # full plan from the second solve on, which rebuilds the
-            # factor's extend-add maps: seconds at lap3d_44 for maps the
-            # solve never reads.)
-            wp = plan.wave_plan(
-                solve_only=plan.resolve_program(common) == "pf")
-            if f._dinv is None:
-                f._dinv = dinv_program(wp, dt, dev)(f.Lx[:plan.total])
-            Dv = f._dinv
-            wp.solve_arrays(dt, dev)
-            _dinv_layout(wp)
-            xrows = n + wp.xpad
+        R = _solve_factor(plan, wave, dt, dev, common)
+        return _solve_body(plan, system, wave, common, R.Lx, R.Dv, R.perm,
+                           R.invperm)
 
-            def lsolve(x):
-                return wave_lsolve(wp, f.Lx, x, Dv)
-
-            def ltsolve(x):
-                return wave_ltsolve(wp, f.Lx, x, Dv)
-        else:
-            xrows = n + 1
-            la = plan.solve_arrays(dt, dev)
-
-            def lsolve(x):
-                return _lsolve_impl(f.Lx, x, la, plan.meta)
-
-            def ltsolve(x):
-                return _ltsolve_impl(f.Lx, x, la, plan.meta)
-
-        perm = _index(f.perm, dev)
-        invperm = _index(np.argsort(f.perm), dev)
-
-        def body(b):
-            x = b.new_zeros((xrows, b.shape[1]))
-            x[:n] = b[perm] if system == "A" else b
-            if system != "Lt":
-                x = lsolve(x)
-            if system != "L":
-                x = ltsolve(x)
-            return x[invperm] if system == "A" else x[:n]
-        return body
-
-    return cached_program(f._cache, ("solve_" + system, wave, dt, int(k),
-                                     dev), make, dev)
+    return cached_program(plan._cache, ("solve_" + system, wave, dt, int(k),
+                                        dev), make, dev)
 
 
 def solve_super(f: SuperFactor, b: np.ndarray, system: str = "A",
                 common: Optional[Common] = None) -> np.ndarray:
     """cholmod_solve on a supernodal factor. Systems: A, LLt, L, Lt, P, Pt.
 
-    Runs on the factor's device through ``solve_program`` (P and Pt on the
-    host); b and the result are host arrays."""
+    Runs on the factor's device through the plan's ``solve_program``
+    after ``bind_solve_factor`` (P and Pt on the host); b and the result
+    are host arrays."""
     n = f.plan.n
     b = np.asarray(b)
     one_d = b.ndim == 1
@@ -747,7 +824,9 @@ def solve_super(f: SuperFactor, b: np.ndarray, system: str = "A",
         out = np.empty_like(bk)
         out[perm] = bk
     elif system in _SOLVE_SYSTEMS:
-        prog = solve_program(f, _SOLVE_SYSTEMS[system], bk.shape[1], common)
+        bind_solve_factor(f, common)
+        prog = solve_program(f.plan, _SOLVE_SYSTEMS[system], bk.shape[1],
+                             f.Lx.dtype, f.Lx.device, common)
         x = prog(torch.as_tensor(bk, device=f.Lx.device).to(f.Lx.dtype))
         out = x.cpu().numpy()
     else:

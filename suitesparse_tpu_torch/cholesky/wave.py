@@ -11,8 +11,8 @@ or scanned with a switch over classes).  The port walks the same stream in
 a Python loop and updates the factor buffer (``wave_numeric``,
 program="wave") or the solution panel in place; ``wave_program``,
 ``dinv_program`` and the solve programs (super_numeric.solve_program) make
-those loops device programs, captured once into CUDA graphs and replayed
-on the card (utils/programs.py).
+those loops device programs, captured once per pattern into CUDA graphs
+and replayed on the card (utils/programs.py).
 """
 from __future__ import annotations
 
@@ -394,19 +394,19 @@ def solve_dinv(wp: WavePlan, Lx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def dinv_program(wp: WavePlan, dtype, device) -> DeviceProgram:
-    """``solve_dinv`` as a device program, cached on the plan per (dtype,
-    device) -- the reference's ``_build_dinv``
-    (suitesparse_tpu/cholesky/wave.py:396): the factor's panels (the flat
-    buffer's first ``plan.total`` entries, where every diagonal block
-    lies) in, the Dinv buffer out, once per factorization."""
-    dt = torch_dtype(dtype)
-    dev = torch.device(device)
+def dinv_program(wp: WavePlan, panels: torch.Tensor) -> DeviceProgram:
+    """``solve_dinv`` as a device program of no inputs over ``panels``,
+    the plan's resident solve panels (super_numeric.SolveFactor: a buffer
+    of ``plan.total`` entries, where every diagonal block lies, that
+    outlives the program), cached on the wave plan per (dtype, device) --
+    the reference's ``_build_dinv`` (suitesparse_tpu/cholesky/wave.py:401).
+    It returns the Dinv buffer, once per factorization."""
+    dt, dev = panels.dtype, panels.device
 
     def make():
         wp.solve_arrays(dt, dev)
         _dinv_layout(wp)
-        return lambda Lx: solve_dinv(wp, Lx)
+        return lambda: solve_dinv(wp, panels)
 
     return cached_program(wp._cache, ("dinv", dt, dev), make, dev)
 

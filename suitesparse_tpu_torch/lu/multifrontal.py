@@ -26,8 +26,9 @@ list is turned into the reference's row permutation on the device; every
 scatter goes through the plan's sorted/unique maps (a sorted segment sum
 folds duplicates, the final scatter hits each target once), so no atomics
 run and refactorizations are bit-identical on the card.  ``umf_program``
-and ``umf_solve_program`` make them device programs, captured once into
-CUDA graphs and replayed on the card (utils/programs.py).
+and ``umf_solve_program`` make them device programs, captured once per
+pattern into CUDA graphs and replayed on the card (utils/programs.py); a
+solve program reads the numeric that ``bind_umf_numeric`` copied in.
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ from ..cholesky.super_numeric import (NumericPlan, _index, _panels,
                                       segment_sum, sorted_scatter_maps)
 from ..utils.device import (default_dtype, numpy_dtype, resolve_device,
                             torch_dtype)
-from ..utils.programs import DeviceProgram, cached_program
+from ..utils.programs import (Binding, DeviceProgram, cached_program,
+                              program_device)
 
 
 @dataclasses.dataclass
@@ -405,7 +407,6 @@ class UmfNumeric:
     # matched-diagonal column scaling (GESP two-sided equilibration);
     # the factored matrix is diag(1/Rs)[rows] A [cols] diag(1/Cs)
     Cs: Optional[np.ndarray] = None
-    _cache: dict = dataclasses.field(default_factory=dict)  # solve programs
 
     @property
     def ok(self) -> bool:
@@ -618,33 +619,93 @@ _SOLVE_IMPLS = {"lsolve": _lu_lsolve_impl, "usolve": _lu_usolve_impl,
                 "ltsolve": _lu_ltsolve_impl, "utsolve": _lu_utsolve_impl}
 
 
-def umf_solve_program(num: "UmfNumeric", name: str, k: int,
-                      conj: bool = False) -> DeviceProgram:
-    """One of the four triangular solves (``name``: "lsolve", "usolve",
-    "ltsolve" or "utsolve"; ``conj`` for the two transposed ones) on the
-    numeric ``num`` for k right-hand sides, as a device program cached on
-    the numeric -- the reference's four jitted solve programs
-    (suitesparse_tpu/lu/multifrontal.py:484-561): z (n, k) in the factor's
-    dtype -> x (n, k)."""
-    S = num.symbolic
+def _umf_solve_body(S: UmfSymbolic, name: str, conj: bool, Lb, Ub, pivs):
+    """The triangular solve ``name`` over the buffers ``Lb``/``Ub`` (their
+    first plan.total entries) and the block pivots ``pivs``: a function
+    z (n, k) -> x (n, k)."""
     n = S.n
-    dev, dt = num.Lb.device, num.Lb.dtype
+    la = S.plan.solve_arrays(Lb.dtype, Lb.device)
+    impl = _SOLVE_IMPLS[name]
+    args = (Lb,) if name in ("lsolve", "ltsolve") else (Lb, Ub)
+    extra = (conj,) if name in ("ltsolve", "utsolve") else ()
+
+    def body(z):
+        x = z.new_zeros((n + 1, z.shape[1]))
+        x[:n] = z
+        return impl(*args, x, pivs, la, S.plan.meta, *extra)[:n]
+    return body
+
+
+@dataclasses.dataclass(eq=False)
+class UmfSolveNumeric:
+    """The numeric that a symbolic's solve programs read, one per dtype and
+    device, cached on its plan: the L and U panels (the buffers' first
+    ``plan.total`` entries) and the block pivots.  ``bind_umf_numeric``
+    copies a numeric in; ``bound`` says whose values these are."""
+
+    Lb: torch.Tensor
+    Ub: torch.Tensor
+    pivs: tuple
+    bound: Binding = dataclasses.field(default_factory=Binding)
+
+    def holds(self, num: UmfNumeric) -> bool:
+        return self.bound.holds(num, num.Lb, num.Ub)
+
+
+def _umf_solve_numeric(S: UmfSymbolic, dt: torch.dtype,
+                       dev: torch.device) -> UmfSolveNumeric:
+    key = ("umf_solve_numeric", dt, dev)
+    got = S.plan._cache.get(key)
+    if got is None:
+        tot = S.plan.total
+        pivs = tuple(tuple(torch.zeros((B, Np), dtype=torch.int64,
+                                       device=dev)
+                           for (Np, _Mb, _base, B) in lv)
+                     for lv in S.plan.meta)
+        got = S.plan._cache[key] = UmfSolveNumeric(
+            Lb=torch.zeros(tot, dtype=dt, device=dev),
+            Ub=torch.zeros(tot, dtype=dt, device=dev), pivs=pivs)
+    return got
+
+
+def bind_umf_numeric(num: UmfNumeric) -> UmfSolveNumeric:
+    """Make ``num`` the numeric that its symbolic's solve programs read
+    and return the plan's ``UmfSolveNumeric``.  L, U and the block pivots
+    are copied in only when another numeric, or other values, are there:
+    repeated solves on one numeric copy nothing."""
+    S = num.symbolic
+    R = _umf_solve_numeric(S, num.Lb.dtype, num.Lb.device)
+    if R.holds(num):
+        return R
+    R.bound.clear()
+    tot = S.plan.total
+    R.Lb.copy_(num.Lb[:tot])
+    R.Ub.copy_(num.Ub[:tot])
+    for lv_r, lv in zip(R.pivs, num.pivs, strict=True):
+        for p_r, p in zip(lv_r, lv, strict=True):
+            p_r.copy_(p)
+    R.bound.set(num, num.Lb, num.Ub)
+    return R
+
+
+def umf_solve_program(S: UmfSymbolic, name: str, k: int, conj: bool,
+                      dtype, device) -> DeviceProgram:
+    """One of the four triangular solves (``name``: "lsolve", "usolve",
+    "ltsolve" or "utsolve"; ``conj`` for the two transposed ones) for k
+    right-hand sides, one per (symbolic, name, conj, k, dtype, device) and
+    cached on the symbolic's plan, as the reference compiles its four
+    solve programs once per pattern with L, U and the pivots as arguments
+    (suitesparse_tpu/lu/multifrontal.py:484-561): z (n, k) -> x (n, k).
+    It reads the numeric bound by ``bind_umf_numeric``."""
+    dev = program_device(device)
+    dt = torch_dtype(dtype)
 
     def make():
-        la = S.plan.solve_arrays(num.dtype, dev)
-        impl = _SOLVE_IMPLS[name]
-        args = ((num.Lb,) if name in ("lsolve", "ltsolve")
-                else (num.Lb, num.Ub))
-        extra = (conj,) if name in ("ltsolve", "utsolve") else ()
+        R = _umf_solve_numeric(S, dt, dev)
+        return _umf_solve_body(S, name, conj, R.Lb, R.Ub, R.pivs)
 
-        def body(z):
-            x = z.new_zeros((n + 1, z.shape[1]))
-            x[:n] = z
-            return impl(*args, x, num.pivs, la, S.plan.meta, *extra)[:n]
-        return body
-
-    return cached_program(num._cache, ("umf_" + name, bool(conj), dt,
-                                       int(k), dev), make, dev,
+    return cached_program(S.plan._cache, ("umf_" + name, bool(conj), dt,
+                                          int(k), dev), make, dev,
                           library=_LU_LIBRARY)
 
 
@@ -756,7 +817,9 @@ def umf_solve(num: UmfNumeric, b: np.ndarray, system: str = "A",
 
     def _run(name, z, conj=False):
         """z (n, k) on the host through the solve program ``name``."""
-        prog = umf_solve_program(num, name, k, conj and is_c)
+        bind_umf_numeric(num)
+        prog = umf_solve_program(S, name, k, conj and is_c, num.Lb.dtype,
+                                 num.Lb.device)
         zt = torch.as_tensor(np.asarray(z), device=prog.device)
         return prog(zt.to(num.Lb.dtype)).cpu().numpy().astype(host_dt)
 

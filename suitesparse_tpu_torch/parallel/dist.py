@@ -6,7 +6,9 @@ relayout, wave ownership, the root peel, the merged DAG schedule and the
 top-front fan-out list) is the reference's, copied, so every plan array is
 identical.  The reference runs one ``shard_map`` program over a mesh of
 devices; here each rank is one process of a ``torch.distributed`` group and
-runs the same program eagerly on its own device:
+runs the same program on its own device, the compute between two
+collectives as device programs (``_rank_programs``: CUDA graphs replayed
+on the card, utils/programs.py) and the collectives eagerly between them:
 
 1. **Owner-contiguous layout**: panels are laid out
    ``[rank0 | rank1 | ... | top | trash | scratch]``; each rank holds ONLY
@@ -49,6 +51,7 @@ from ..cholesky.super_numeric import (_a_sorted_maps, _index, _panels,
 from ..core.sparse import INDEX
 from ..utils.device import (default_dtype, numpy_dtype, resolve_device,
                             torch_dtype)
+from ..utils.programs import Binding, DeviceProgram
 from .block_cyclic import cyclic_potrf
 
 
@@ -831,44 +834,140 @@ def _seconds(a, b) -> float:
     return b - a if isinstance(a, float) else a.elapsed_time(b) * 1e-3
 
 
-def _factor_local(vals: torch.Tensor, dp: DistPlan, mesh: Mesh,
-                  marks: list) -> torch.Tensor:
-    """The reference's _make_dist_program for this rank: A assembly into
-    the local buffer, phase 1, the phase-boundary all-reduce, phase 2 and
-    the root.  Returns the local buffer; appends five ``_mark``s to marks
-    (start, after phase 1, the boundary, phase 2 and the root)."""
+@dataclasses.dataclass(eq=False)
+class _RankSolve:
+    """The distributed solve of one rank for k right-hand sides: three
+    device programs between its two all-reduces, over static (xrows, k)
+    buffers -- x0 the permuted right-hand side, x the working panel, xm
+    the panel after the top solves and ``delta`` the all-reduced part."""
+
+    x0: torch.Tensor
+    x: torch.Tensor
+    xm: torch.Tensor
+    delta: torch.Tensor
+    forward: DeviceProgram     # b -> the subtree forward solves; delta
+    top: DeviceProgram         # x0 + delta -> the top solves; xm
+    backward: DeviceProgram    # xm -> the subtree backward solves; delta
+
+
+@dataclasses.dataclass(eq=False)
+class _RankPrograms:
+    """One rank's device programs between the collectives, cached on the
+    DistPlan per (rank, dtype, device) -- the reference jits the whole
+    rank program (suitesparse_tpu/parallel/dist.py:1007) and its solve
+    (:1128); gloo's collectives cannot be captured, so the compute between
+    them is.  Every program updates the rank's static buffers in place:
+    ``Lx`` (the local buffer) and ``init_top`` (the top region as
+    assembled); the collectives run eagerly on them between replays.
+    ``bound`` names the DistFactor whose values ``Lx`` holds."""
+
+    rp: _RankProgram
+    Lx: torch.Tensor
+    init_top: torch.Tensor
+    phase1: DeviceProgram      # vals -> assembly and the own waves
+    phase2: list               # DeviceProgram (a run of replicated top
+    #                            waves) or (cid, row, nb) of a fanned front
+    solves: dict = dataclasses.field(default_factory=dict)   # k -> _RankSolve
+    bound: Binding = dataclasses.field(default_factory=Binding)
+
+    def bind(self, f: "DistFactor") -> None:
+        """Put ``f``'s local buffer in ``Lx`` unless it is there."""
+        if not self.bound.holds(f, f.Lx):
+            self.Lx.copy_(f.Lx)
+            self.bound.set(f, f.Lx)
+
+
+def _rank_programs(dp: DistPlan, mesh: Mesh,
+                   dtype: torch.dtype) -> _RankPrograms:
+    """This rank's programs (made once per plan, rank, dtype and device):
+    phase 1 is the A assembly into the zeroed local buffer and this rank's
+    own waves; phase 2 is each maximal run of replicated top waves, with
+    the fanned fronts (eager: a broadcast per block column) between them."""
+    rank, dev = mesh.rank, mesh.device
+    key = ("programs", rank, dev, dtype)
+    got = dp._cache.get(key)
+    if got is not None:
+        return got
     from ..cholesky.wave import _numeric_step
-    dev = vals.device
-    rp = _rank_program(dp, mesh, vals.dtype)
+    rp = _rank_program(dp, mesh, dtype)
     steps = [_numeric_step(Np, Mb, W, L, K, False)
              for (Np, Mb, W, L, K, *_r) in dp.wp.meta]
     Bloc, Btop = dp.Bloc, dp.Btop
+    Lx = torch.zeros(dp.lbuf, dtype=dtype, device=dev)
+    init_top = torch.zeros(Btop, dtype=dtype, device=dev)
+
+    def phase1(vals):
+        Lx.zero_()
+        Lx[rp.a_dst] = vals[rp.a_src]
+        init_top.copy_(Lx[Bloc:Bloc + Btop])
+        for cid, row in rp.phase1:
+            steps[cid](Lx, row, rp.fac[cid])
+        return ()
+
+    def top_run(waves):
+        def body():
+            for cid, row in waves:
+                steps[cid](Lx, row, rp.fac[cid])
+            return ()
+        return body
+
+    fan = dict(dp.top_fan)
+    pieces, run = [], []
+    for t, cid, row in rp.top + [(None, None, None)]:
+        if t is None or t in fan:
+            if run:
+                i = len(pieces)
+                pieces.append(DeviceProgram(
+                    "dist_top", ("dist_top", rank, i, dtype, dev),
+                    top_run(run), dev, mutates=(Lx,)))
+                run = []
+            if t is not None:
+                pieces.append((cid, row, fan[t]))
+        else:
+            run.append((cid, row))
+    got = dp._cache[key] = _RankPrograms(
+        rp=rp, Lx=Lx, init_top=init_top, phase2=pieces,
+        phase1=DeviceProgram("dist_phase1", ("dist_phase1", rank, dtype,
+                                             dev), phase1, dev))
+    return got
+
+
+def _factor_local(vals: torch.Tensor, dp: DistPlan, mesh: Mesh,
+                  marks: list,
+                  run=DeviceProgram.__call__) -> _RankPrograms:
+    """The reference's _make_dist_program for this rank: A assembly into
+    the local buffer, phase 1, the phase-boundary all-reduce, phase 2 and
+    the root, in the rank's programs' buffers (``_rank_programs``).
+    ``run(prog, *inputs)`` runs each program (by default its call: a
+    replay on the card; the rank job pairs it with its eager body).  Returns the programs; appends five
+    ``_mark``s to marks (start, after phase 1, the boundary, phase 2 and
+    the root)."""
+    dev = vals.device
+    rs = _rank_programs(dp, mesh, vals.dtype)
+    rs.bound.clear()
+    Lx, rp = rs.Lx, rs.rp
+    Bloc, Btop = dp.Bloc, dp.Btop
     marks.append(_mark(dev))
-    Lx = vals.new_zeros(dp.lbuf)
-    Lx[rp.a_dst] = vals[rp.a_src]
-    init_top = Lx[Bloc:Bloc + Btop].clone()
-    # phase 1: this rank's subtree waves, no communication
-    for cid, row in rp.phase1:
-        steps[cid](Lx, row, rp.fac[cid])
+    run(rs.phase1, vals)
     marks.append(_mark(dev))
     # phase boundary: ONE all-reduce of the top-region contributions
     if Btop:
-        topd = Lx[Bloc:Bloc + Btop] - init_top
+        topd = Lx[Bloc:Bloc + Btop] - rs.init_top
         mesh.all_reduce(topd, "boundary")
-        Lx[Bloc:Bloc + Btop] = topd + init_top
+        Lx[Bloc:Bloc + Btop] = topd + rs.init_top
     marks.append(_mark(dev))
     # phase 2: the shared top, large fronts column-block-cyclic
-    fan = dict(dp.top_fan)
-    for t, cid, row in rp.top:
-        if t in fan:
-            _front_fanout(Lx, dp, mesh, cid, rp.fac[cid], row, fan[t])
+    for piece in rs.phase2:
+        if isinstance(piece, DeviceProgram):
+            run(piece)
         else:
-            steps[cid](Lx, row, rp.fac[cid])
+            cid, row, nb = piece
+            _front_fanout(Lx, dp, mesh, cid, rp.fac[cid], row, nb)
     marks.append(_mark(dev))
     if dp.root is not None:
         _root_fanout(Lx, dp, mesh)
     marks.append(_mark(dev))
-    return Lx
+    return rs
 
 
 # ---------------------------------------------------------------------------
@@ -944,38 +1043,91 @@ class DistFactor:
         only communication.  A collective: every rank must call it."""
         from ..core.common import default_common
         cm = common or default_common()
-        dp, mesh = self.dp, self.mesh
+        dp = self.dp
         n = dp.plan.n
         b = np.asarray(b)
         one_d = b.ndim == 1
         bk = b.reshape(n, -1)
-        k = bk.shape[1]
-        rp = _rank_program(dp, mesh, self.Lx.dtype)
-        meta = dp.wp.meta
-        xrows = n + dp.wp.xpad
-        x0 = self.Lx.new_zeros((xrows, k))
-        x0[:n] = torch.as_tensor(bk[self.perm], device=self.Lx.device)
-        # forward: per-rank subtree solves, one all-reduce of the disjoint
-        # x deltas, then the replicated top solves
-        x = x0.clone()
-        for cid, row in rp.phase1:
-            _lsolve_wave(self.Lx, x, rp.sol[cid], row, *meta[cid][:3])
-        x = x0 + mesh.all_reduce(x - x0, "solve")
-        for cid, row in rp.top_solve:
-            _lsolve_wave(self.Lx, x, rp.sol[cid], row, *meta[cid][:3])
-        for cid, row in reversed(rp.top_solve):
-            _ltsolve_wave(self.Lx, x, rp.sol[cid], row, *meta[cid][:3])
-        xm = x.clone()
-        for cid, row in reversed(rp.phase1):
-            _ltsolve_wave(self.Lx, x, rp.sol[cid], row, *meta[cid][:3])
-        x = xm + mesh.all_reduce(x - xm, "solve")
+        x = _solve_local(self, bk)
         itemsize = int(np.dtype(self.dtype).itemsize)
         cm.info["dist_solve_psum_bytes"] = (
-            2 * xrows * k * 2 * (dp.ndev - 1) // max(dp.ndev, 1) * itemsize)
+            2 * x.shape[0] * x.shape[1] * 2 * (dp.ndev - 1)
+            // max(dp.ndev, 1) * itemsize)
         xh = x[:n].cpu().numpy()
         out = np.empty_like(xh)
         out[self.perm] = xh
         return out.reshape(-1) if one_d else out
+
+
+def _rank_solve(rs: _RankPrograms, dp: DistPlan, mesh: Mesh,
+                k: int) -> _RankSolve:
+    """The rank's solve programs for k right-hand sides (made once)."""
+    got = rs.solves.get(k)
+    if got is not None:
+        return got
+    rp, Lx = rs.rp, rs.Lx
+    meta = dp.wp.meta
+    n = dp.plan.n
+    dev, dt = Lx.device, Lx.dtype
+    x0, x, xm, delta = (torch.zeros((n + dp.wp.xpad, k), dtype=dt,
+                                    device=dev) for _ in range(4))
+
+    def forward(b):
+        x0.zero_()
+        x0[:n] = b
+        x.copy_(x0)
+        for cid, row in rp.phase1:
+            _lsolve_wave(Lx, x, rp.sol[cid], row, *meta[cid][:3])
+        delta.copy_(x - x0)
+        return ()
+
+    def top():
+        x.copy_(x0 + delta)
+        for cid, row in rp.top_solve:
+            _lsolve_wave(Lx, x, rp.sol[cid], row, *meta[cid][:3])
+        for cid, row in reversed(rp.top_solve):
+            _ltsolve_wave(Lx, x, rp.sol[cid], row, *meta[cid][:3])
+        xm.copy_(x)
+        return ()
+
+    def backward():
+        x.copy_(xm)
+        for cid, row in reversed(rp.phase1):
+            _ltsolve_wave(Lx, x, rp.sol[cid], row, *meta[cid][:3])
+        delta.copy_(x - xm)
+        return ()
+
+    key = (mesh.rank, int(k), dt, dev)
+    got = rs.solves[k] = _RankSolve(
+        x0=x0, x=x, xm=xm, delta=delta,
+        forward=DeviceProgram("dist_solve_forward",
+                              ("dist_solve_forward",) + key, forward, dev),
+        top=DeviceProgram("dist_solve_top", ("dist_solve_top",) + key, top,
+                          dev),
+        backward=DeviceProgram("dist_solve_backward",
+                               ("dist_solve_backward",) + key, backward,
+                               dev))
+    return got
+
+
+def _solve_local(f: DistFactor, bk: np.ndarray,
+                 run=DeviceProgram.__call__) -> torch.Tensor:
+    """This rank's part of the distributed solve of the (n, k) host
+    right-hand side ``bk``: the forward subtree solves, one all-reduce of
+    the disjoint x deltas, the replicated top solves, the backward
+    subtree solves and a second all-reduce.  ``run`` as in
+    ``_factor_local``.  Returns the permuted solution panel (xrows, k)."""
+    dp, mesh = f.dp, f.mesh
+    rs = _rank_programs(dp, mesh, f.Lx.dtype)
+    rs.bind(f)
+    sv = _rank_solve(rs, dp, mesh, bk.shape[1])
+    b = torch.as_tensor(bk[f.perm], device=f.Lx.device).to(f.Lx.dtype)
+    run(sv.forward, b)
+    mesh.all_reduce(sv.delta, "solve")
+    run(sv.top)
+    run(sv.backward)
+    mesh.all_reduce(sv.delta, "solve")
+    return sv.xm + sv.delta
 
 
 def distributed_factorize(A, mesh: Mesh = None, common=None, dtype=None,
@@ -1013,12 +1165,16 @@ def distributed_factorize(A, mesh: Mesh = None, common=None, dtype=None,
     cm.info.update({k.replace("_elems", "_bytes"): v * itemsize
                     for k, v in dp.comm.items() if k.endswith("_elems")})
     m = []
-    Lx = _factor_local(vals, dp, mesh, m)
+    rs = _factor_local(vals, dp, mesh, m)
+    Lx = rs.Lx
     # NaN check: one all-reduce (MAX) of this rank's flag
     bad = torch.isnan(Lx[:dp.Bloc + dp.Btop]).any().to(Lx.dtype).reshape(1)
     mesh.all_reduce(bad, "nan", op=dist.ReduceOp.MAX)
-    f = DistFactor(dp=dp, Lx=Lx, mesh=mesh, perm=dp.sym.perm,
+    # the factor handed out is a copy: a later refactorization, which
+    # reuses the rank's buffer, leaves it as it is
+    f = DistFactor(dp=dp, Lx=Lx.clone(), mesh=mesh, perm=dp.sym.perm,
                    minor=dp.plan.n, dtype=dtype)
+    rs.bound.set(f, f.Lx)
     failed = bool(bad.item())          # synchronizes: the marks are read
     cm.info.update(dist_factor_time=_seconds(m[0], m[4]),
                    dist_phase1_time=_seconds(m[0], m[1]),

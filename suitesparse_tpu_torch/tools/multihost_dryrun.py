@@ -25,8 +25,10 @@ Cases (``job["cases"]``, each a dict with a ``kind``):
                 torch.distributed's functions), per-phase times and bytes,
                 the gathered factor against the single-process wave
                 program, the distributed solve with float64 refinement,
-                value rescaling, the fan-out switched off, and a solve of a
-                factor adopted from numpy arrays
+                each rank program against its eager body (``pairs``
+                rounds), value rescaling, a held factor unchanged by later
+                refactorizations, the fan-out switched off, and a solve of
+                a factor adopted from numpy arrays
   notposdef     an indefinite matrix: status and minor, beside the
                 single-process factor's minor
   level_step    distributed_level_step of one bucket against the
@@ -225,6 +227,69 @@ def _kernel_launches() -> dict:
                       probe.scale_gather)}
 
 
+def _pair_hook(rs, reps: int, dev, rows: list):
+    """A ``run`` hook for the rank's ``_factor_local``/``_solve_local``:
+    each program's eager body and its replay, ``reps`` rounds after one
+    untimed round, alternating which goes first, each started from the
+    same state of the rank's buffers and timed on the host clock ended by
+    a sync.  The state each leaves must be the same bit for bit; the eager
+    body runs under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+    sync).  Appends one row per program to ``rows``; the buffers end as
+    the replay leaves them."""
+    import torch
+
+    def state():
+        out = [rs.Lx, rs.init_top]
+        for sv in rs.solves.values():
+            out += [sv.x0, sv.x, sv.xm, sv.delta]
+        return out
+
+    def eager(prog, inputs):
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            prog.eager(*inputs)
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+
+    def run(prog, *inputs):
+        t0 = time.perf_counter()
+        prog.prepare(*inputs)
+        _sync(dev)
+        setup_s = time.perf_counter() - t0
+        start = [t.clone() for t in state()]
+        times = dict(eager=[], replay=[])
+        want = None
+        for r in range(reps + 1):
+            order = (("eager", lambda: eager(prog, inputs)),
+                     ("replay", lambda: prog(*inputs)))
+            for name, fn in (order if r % 2 == 0 else order[::-1]):
+                for t, s in zip(state(), start):
+                    t.copy_(s)
+                _sync(dev)
+                t0 = time.perf_counter()
+                fn()
+                _sync(dev)
+                if r:
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+                got = [t.clone() for t in state()]
+                if want is None:
+                    want = got
+                elif not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"{prog.name} {prog.key}: replay "
+                                         f"and eager body differ")
+        rows.append(dict(
+            program=prog.name, key=str(prog.key[1:]),
+            replayed=prog.graph is not None,
+            eager_ms=float(np.median(times["eager"])),
+            replay_ms=float(np.median(times["replay"])),
+            eager_ms_all=times["eager"], replay_ms_all=times["replay"],
+            setup_s=setup_s, warmup_s=prog.warmup_s,
+            capture_s=prog.capture_s, graph_nodes=prog.nodes))
+    return run
+
+
 def _case_dist(spec, mesh, raw, arrays):
     import torch
     import torch.distributed as tdist
@@ -321,6 +386,7 @@ def _case_dist(spec, mesh, raw, arrays):
     t0 = time.perf_counter()
     x = f.solve(b, cm).astype(np.float64)
     solve_s = [time.perf_counter() - t0]
+    x_first = x.copy()
     out["solve_counts"] = _mesh_counts(mesh)
     out["solve_raw_counts"] = dict(raw)
     if out["solve_counts"] != {"solve/all_reduce": 2} or dict(raw) != {
@@ -339,6 +405,21 @@ def _case_dist(spec, mesh, raw, arrays):
         x = x + dx.astype(np.float64)
         res.append(residual_norm(A, x, b))
     out.update(residuals=res, solve_s=solve_s)
+    held = f.Lx.clone()
+    if spec.get("pairs"):
+        # each program of the rank timed against its eager body, through a
+        # refactorization and a solve of the held factor
+        rows = []
+        vals = torch.as_tensor(_assemble_values(A, dp.sym, dp.ss, dtype),
+                               device=dev)
+        rs = pd._rank_programs(dp, mesh, vals.dtype)
+        hook = _pair_hook(rs, spec["pairs"], dev, rows)
+        pd._factor_local(vals, dp, mesh, [], run=hook)
+        if not torch.equal(rs.Lx, held):
+            raise AssertionError("the paired refactorization differs")
+        pd._solve_local(f, b.reshape(n, 1), run=hook)
+        out["program_pairs"] = rows
+        del vals
     for s in spec.get("scales", ()):
         As = SparseCSC(A.indptr, A.indices, A.data * s, A.shape)
         fs = factor(As)
@@ -349,6 +430,14 @@ def _case_dist(spec, mesh, raw, arrays):
             arrays[f"top_{s}"] = fs.top.cpu().numpy()
             arrays[f"x_{s}"] = xs
         del fs
+    # the factor handed out is a copy: the later refactorizations left it
+    # as it was, and solving it again copies it back into the rank's
+    # buffer and gives the first solve's x bit for bit
+    if not torch.equal(f.Lx, held):
+        raise AssertionError("a later refactorization changed a held factor")
+    if not np.array_equal(f.solve(b).astype(np.float64), x_first):
+        raise AssertionError("a held factor's solve changed")
+    del held
     if spec.get("fanout_off"):
         dp0 = dataclasses.replace(dp, top_fan=())
         f0, _ = pd.distributed_factorize(A, mesh, cm, dtype=dtype, dp=dp0)

@@ -29,16 +29,25 @@ The kernel wrappers count their launches (``fn.launches``).  A replay makes
 no Python call, so a program records how many launches of each counted
 wrapper its capture recorded, adds that many on every replay, and leaves
 the counts as they were across the warm-up and the capture.
+
+A body may also update tensors it closes over in place (a distributed
+rank's local buffer, between two collectives).  The warm-up runs such a
+body once more than the caller asked, so the program is told which tensors
+it updates (``mutates``): their contents are saved before the warm-up and
+put back after it.  A body may return ``()`` when its effect is such an
+update.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import time
+import weakref
 
 import torch
 
-__all__ = ["DeviceProgram", "cached_program"]
+__all__ = ["Binding", "DeviceProgram", "cached_program", "program_device"]
 
 
 def _tree_map(fn, obj):
@@ -91,6 +100,15 @@ def _check_precision():
             "float32 matmul precision to 'highest'")
 
 
+def program_device(device) -> torch.device:
+    """``device`` with its index (the current card for a bare "cuda"), so
+    that the keys of one card's programs are equal however it was named."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 class DeviceProgram:
     """One compiled device program: ``body`` over static input buffers,
     captured into a CUDA graph on the card and run eagerly on the CPU.
@@ -104,22 +122,23 @@ class DeviceProgram:
     counters: kernel wrappers with a ``launches`` count (block_chol).
     library:  torch.linalg's preferred CUDA library while the body runs on
               the card (None: PyTorch's choice).
+    mutates:  tensors the body updates in place (besides its static
+              inputs, which it must not change): restored after the
+              warm-up, so that the first call updates them once.
 
     After the first call on the card: ``warmup_s`` and ``capture_s`` (host
     seconds of the warm-up and of the capture with its instantiation),
     ``nodes`` (the graph's node count) and ``graph``."""
 
     def __init__(self, name: str, key: tuple, body, device,
-                 counters=(), library=None):
+                 counters=(), library=None, mutates=()):
         self.name = name
         self.key = key
         self.body = body
-        dev = torch.device(device)
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        self.device = dev
+        self.device = program_device(device)
         self.counters = tuple(counters)
         self.library = library
+        self.mutates = tuple(mutates)
         self.static = None          # the static input buffers
         self.graph = None
         self.out = None             # the graph's static output
@@ -161,12 +180,16 @@ class DeviceProgram:
         before = [c.launches for c in self.counters]
         try:
             t0 = time.perf_counter()
+            saved = [t.clone() for t in self.mutates]
             cur = torch.cuda.current_stream(dev)
             side = torch.cuda.Stream(dev)
             side.wait_stream(cur)
             with torch.cuda.stream(side):
                 self.eager(*static)
             cur.wait_stream(side)
+            for t, s in zip(self.mutates, saved):
+                t.copy_(s)
+            del saved
             torch.cuda.synchronize(dev)
             t1 = time.perf_counter()
             for c, n in zip(self.counters, before):
@@ -223,3 +246,26 @@ def cached_program(cache: dict, key: tuple, make_body, device,
         prog = cache[key] = DeviceProgram(key[0], key, make_body(), device,
                                           **kw)
     return prog
+
+
+@dataclasses.dataclass
+class Binding:
+    """Whose values a plan's static buffers hold, when programs read a
+    factor as data (the reference passes it as an argument): a weak
+    reference to the object copied in and the in-place versions of its
+    tensors at the copy, so that the next copy is skipped only for the
+    same object with the same values."""
+
+    owner: object = None
+    versions: tuple = ()
+
+    def holds(self, obj, *tensors) -> bool:
+        return (self.owner is not None and self.owner() is obj
+                and tuple(t._version for t in tensors) == self.versions)
+
+    def set(self, obj, *tensors) -> None:
+        self.owner = weakref.ref(obj)
+        self.versions = tuple(t._version for t in tensors)
+
+    def clear(self) -> None:
+        self.owner, self.versions = None, ()

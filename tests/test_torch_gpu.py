@@ -8,7 +8,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import cd3d, omega, tree_equal
+from chip_smoke import (cd3d, host_syncs, omega, one_sync_bfs,
+                        one_sync_pagerank, ring_chords, tree_equal)
 from suitesparse_tpu_torch.cholesky import (analyze, factorize_super,
                                             residual_norm, solve_super,
                                             super_symbolic)
@@ -488,7 +489,7 @@ def test_distributed_two_ranks_on_one_card(tmp_path):
     _need_card()
     from suitesparse_tpu_torch.tools.multihost_dryrun import launch
     case = dict(kind="dist", gen="laplacian_3d", arg=12, reps=3, seed=5,
-                save=True, root_2d_min=64, root_2d_nb=32)
+                save=True, root_2d_min=64, root_2d_nb=32, pairs=1)
     out = {}
     for device, dtype in (("cuda", "float32"), ("cpu", "float64")):
         res = launch(2, dict(backend="gloo", device=device,
@@ -496,6 +497,10 @@ def test_distributed_two_ranks_on_one_card(tmp_path):
                      str(tmp_path / device), timeout=300)
         assert all(r["dist"]["status"] == 0 for r in res)
         assert res[0]["device"].startswith(device)
+        # every rank program ran as a replay on the card, held by the rank
+        # against its eager body (sync-free) bit for bit
+        assert all(row["replayed"] == (device == "cuda")
+                   for r in res for row in r["dist"]["program_pairs"])
         out[device] = [dict(np.load(tmp_path / device / f"rank{r}.npz"))
                        for r in range(2)]
     assert res[0]["dist"]["top_fan"] and res[0]["dist"]["root"]
@@ -546,7 +551,7 @@ def card_programs():
         prog = factor_program(plan, cm, np.float32, "cuda")
         progs[f"factor {opts}"] = (prog, tuple(t.clone()
                                                for t in prog.static))
-        take(f"{opts}", f._cache)
+        take(f"{opts}", plan._cache)
         if plan._wave is not None:
             take(f"{opts} wave plan", plan._wave._cache)
     cmu = default_common()
@@ -555,7 +560,6 @@ def card_programs():
     for system in ("A", "At"):
         umf_solve(num, b[:C.ncol], system, refine=0)
     take("umf", num.symbolic.plan._cache)
-    take("umf", num._cache)
     K = circuit_like(300, seed=3)
     ksym = klu_analyze(K)
     kplan, refactor, solve = klu_device(K, ksym, klu_factor(K, ksym))
@@ -565,6 +569,11 @@ def card_programs():
         fs, Rs, _ = refactor(av)
         solve(fs, Rs, av, b[:K.ncol, 0])
     take("klu", kplan._cache)
+    from suitesparse_tpu_torch.graphblas import bfs_levels, pagerank
+    G = ring_chords(3000, 21)
+    pagerank(G, max_iter=20)
+    bfs_levels(G, 0)
+    take("graph", G._loop_programs)
     assert len(progs) >= 40
     return progs
 
@@ -642,3 +651,105 @@ def test_block_chol_launches_per_replay_and_no_aliasing(tmp_path):
     t = f2.plan.total
     assert back.Lx.device.type == "cuda"
     assert torch.equal(back.Lx[:t], f2.Lx[:t]) and back.minor == f2.minor
+
+
+@pytest.mark.gpu
+def test_two_factors_share_one_captured_solve_program():
+    """Two factors of one plan solve alternately (f1, f2, f1) through the
+    plan's programs: each captured once (no warm-up or capture for the
+    second factor), each solution bit-identical to the solve body run
+    eagerly on its own factor's buffers."""
+    _need_card()
+    from suitesparse_tpu_torch.cholesky.super_numeric import (
+        _solve_body, _solve_wave_plan, bind_solve_factor, solve_program)
+    from suitesparse_tpu_torch.cholesky.wave import solve_dinv
+    A = laplacian_3d(12)
+    cm = default_common()
+    cm.cholesky.supernodal = "supernodal"
+    cm.cholesky.program = "pf"
+    sym = analyze(A, cm)
+    ss = super_symbolic(A, sym, cm)
+    f1 = factorize_super(A, sym, ss, common=cm)
+    A2 = type(A)(A.indptr, A.indices, A.data * 2.0, A.shape)
+    f2 = factorize_super(A2, sym, ss, plan=f1.plan, common=cm)
+    plan = f1.plan
+    b = np.random.default_rng(2).standard_normal((A.ncol, 4))
+    graphs = {}
+    for f in (f1, f2, f1):
+        perm = torch.as_tensor(f.perm, device="cuda")
+        for system in ("A", "LLt", "L", "Lt"):
+            x = solve_super(f, b, system, cm)
+            prog = solve_program(plan, system, 4, torch.float32, "cuda", cm)
+            assert prog.graph is not None
+            assert graphs.setdefault(system, prog.graph) is prog.graph
+            Dv = solve_dinv(_solve_wave_plan(plan, cm), f.Lx)
+            own = _solve_body(plan, system, True, cm, f.Lx, Dv, perm,
+                              torch.argsort(perm))
+            want = own(torch.as_tensor(b, dtype=torch.float32,
+                                       device="cuda"))
+            assert np.array_equal(x, want.cpu().numpy()), system
+        R = bind_solve_factor(f, cm)
+        assert R.holds(f)
+
+
+@pytest.mark.gpu
+def test_two_numerics_share_one_captured_umf_solve_program():
+    """The same for umf_solve: two numerics of one symbolic, alternately,
+    through programs captured once, each triangular solve bit-identical
+    to the body run eagerly on its own numeric."""
+    _need_card()
+    from suitesparse_tpu_torch.lu import umf_numeric, umf_solve, umf_symbolic
+    from suitesparse_tpu_torch.lu.multifrontal import (_umf_solve_body,
+                                                       umf_solve_program)
+    C = cd3d(8)
+    cm = default_common()
+    S = umf_symbolic(C, cm)
+    C2 = type(C)(C.indptr, C.indices, C.data * 1.5, C.shape)
+    nums = [umf_numeric(C, S, cm), umf_numeric(C2, S, cm)]
+    rng = np.random.default_rng(6)
+    graphs = {}
+    for i in (0, 1, 0):
+        num = nums[i]
+        umf_solve(num, rng.standard_normal(C.ncol), "A", refine=0)
+        umf_solve(num, rng.standard_normal(C.ncol), "At", refine=0)
+        for name in ("lsolve", "usolve", "ltsolve", "utsolve"):
+            prog = umf_solve_program(S, name, 1, False, torch.float32, "cuda")
+            assert prog.graph is not None
+            assert graphs.setdefault(name, prog.graph) is prog.graph
+            z = torch.as_tensor(rng.standard_normal((C.ncol, 1)),
+                                dtype=torch.float32, device="cuda")
+            own = _umf_solve_body(S, name, False, num.Lb, num.Ub, num.pivs)
+            assert torch.equal(prog(z), own(z.clone())), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("steps", [1, 3, 8])
+def test_loop_programs_match_the_one_sync_loop_on_the_card(steps):
+    """PageRank and BFS programs of 1, 3 and 8 predicated steps on the
+    card: the one-sync loop's iteration and its ranks and levels bit for
+    bit, with at most ceil(iterations / steps) + 1 host syncs a run once
+    the program is captured."""
+    _need_card()
+    from suitesparse_tpu_torch.graphblas import algorithms as alg
+    G = ring_chords(3000, 21)
+    dev = torch.device("cuda")
+    rows, cols, _ = alg._coo_arrays(G, dev)
+    n = G.shape[0]
+    outdeg = torch.clamp(torch.bincount(rows, minlength=n).float(), min=1.0)
+    w = 1.0 / outdeg[rows]
+    for tol, max_iter in ((1e-9, 100), (1e-6, 100), (0.0, 7)):
+        r1, it1 = one_sync_pagerank(rows, cols, w, n, tol, max_iter)
+        cache = {}
+        alg._pagerank_loop(rows, cols, w, n, 0.85, tol, max_iter, steps,
+                           cache)
+        (r, it), syncs = host_syncs(lambda: alg._pagerank_loop(
+            rows, cols, w, n, 0.85, tol, max_iter, steps, cache))
+        assert it == it1 and torch.equal(r, r1), (tol, max_iter)
+        assert syncs <= -(-it // steps) + 1, (syncs, it)
+    level1, depth = one_sync_bfs(rows, cols, n, 0)
+    cache = {}
+    alg._bfs_loop(rows, cols, n, 0, steps, cache)
+    (level, d), syncs = host_syncs(
+        lambda: alg._bfs_loop(rows, cols, n, 0, steps, cache))
+    assert d == depth and torch.equal(level, level1)
+    assert syncs <= -(-d // steps) + 1, (syncs, d)

@@ -19,6 +19,7 @@ import suitesparse_tpu.graphblas as rg
 from suitesparse_tpu.graphblas import algorithms as ref_alg
 from suitesparse_tpu.graphblas import core as ref_core
 
+from chip_smoke import one_sync_pagerank
 from suitesparse_tpu_torch.core.sparse import SparseCSC
 import suitesparse_tpu_torch.graphblas as pg
 from suitesparse_tpu_torch.graphblas import algorithms as port_alg
@@ -626,6 +627,63 @@ def test_pagerank_matches_reference(tol, max_iter):
     if iters > 1:
         assert not np.array_equal(
             ref_alg.pagerank(ra, tol=tol, max_iter=iters - 1), want)
+
+
+@pytest.mark.parametrize("steps", [1, 3, 8])
+@pytest.mark.parametrize("tol,max_iter", [(1e-9, 100), (1e-6, 100),
+                                          (0.0, 7), (1e-9, 0), (0.0, 9)])
+def test_pagerank_steps_stop_at_the_reference_iteration(steps, tol,
+                                                        max_iter):
+    """Programs of 1, 3 and 8 predicated steps a run: the same iteration
+    as the reference (a tolerance met inside a run, caps of 7 and 9 that
+    are no multiple of 3 or 8, a cap of 0) and ranks bit-identical to the
+    one-sync loop, within 1e-12 of the reference's."""
+    ra, pa = _pair(_ring_graph())
+    want = ref_alg.pagerank(ra, tol=tol, max_iter=max_iter)
+    dev = torch.device(CPU)
+    rows, cols, _ = port_alg._coo_arrays(pa, dev)
+    outdeg = torch.clamp(torch.bincount(rows, minlength=2000).double(),
+                         min=1.0)
+    w = 1.0 / outdeg[rows]
+    r1, it1 = one_sync_pagerank(rows, cols, w, 2000, tol, max_iter)
+    cache = {}
+    for _ in range(2):               # a second run reuses the program
+        r, it = port_alg._pagerank_loop(rows, cols, w, 2000, 0.85, tol,
+                                        max_iter, steps=steps, cache=cache)
+        assert it == it1 and torch.equal(r, r1)
+    assert len(cache) == 1
+    _close(r.numpy(), want)
+    if it:
+        assert np.array_equal(ref_alg.pagerank(ra, tol=tol, max_iter=it),
+                              want)
+    if it < max_iter:
+        assert tol > 0                  # stopped by the tolerance
+    if it > 1:
+        assert not np.array_equal(
+            ref_alg.pagerank(ra, tol=tol, max_iter=it - 1), want)
+    got, its = port_alg._pagerank(pa, 0.85, tol, max_iter, dev, steps)
+    assert its == it and torch.equal(got, r1)
+
+
+@pytest.mark.parametrize("steps", [1, 3, 8])
+def test_bfs_steps_stop_at_the_reference_iteration(steps):
+    """BFS programs of 1, 3 and 8 predicated steps: the reference's levels
+    and its number of pull steps (one past the deepest level, where the
+    frontier empties), on the ring graph and on one with an unreachable
+    half; the program is cached with the pattern."""
+    P = sp.diags([np.ones(9)], [1], shape=(10, 10)).tocsc()
+    for S, source in ((_ring_graph(), 0), (_ring_graph(), 777),
+                      (sp.block_diag([P[:5, :5], P[:5, :5]]).tocsc(), 0)):
+        ra, pa = _pair(S)
+        want = np.asarray(ref_alg.bfs_levels(ra, source))
+        rows, cols, _ = port_alg._coo_arrays(pa, torch.device(CPU))
+        level, depth = port_alg._bfs_loop(rows, cols, S.shape[0], source,
+                                          steps=steps)
+        assert np.array_equal(level.numpy(), want)
+        assert depth == int(want.max()) + 1
+    for _ in range(2):
+        assert np.array_equal(pg.bfs_levels(pa, 0, device=CPU), want)
+    assert {key[0] for key in pa._loop_programs} == {"bfs_arrays", "bfs"}
 
 
 @pytest.mark.parametrize("source", [0, 777])

@@ -97,8 +97,9 @@ def _port_job(ref_npz):
     cases = [
         dict(kind="dist", gen="laplacian_3d", arg=K, reps=1,
              scales=[1.0, 2.5], check_wave=True, fanout_off=True, save=True,
-             ref_npz=ref_npz, seed=SEED, **ROOT16),
-        dict(kind="dist", name="lap2d", gen="laplacian_2d", arg=20),
+             ref_npz=ref_npz, seed=SEED, pairs=1, **ROOT16),
+        dict(kind="dist", name="lap2d", gen="laplacian_2d", arg=20,
+             pairs=1),
         dict(kind="level_step", gen="laplacian_3d", arg=K, save=True)]
     cases += [dict(kind="notposdef", name=f"notposdef{i}",
                    gen="laplacian_3d", arg=K, shift=s, **ROOT16)
@@ -172,6 +173,33 @@ def test_refactorization_reuses_plan(run):
         A25.data = A25.data * 2.5
         assert residual_norm(A25, a["x_2.5"], b) < 1e-12
     assert run["res"][0]["dist"]["residual_scale_2.5"] < 1e-12
+
+
+def test_rank_programs_between_the_collectives(run):
+    """Each rank runs phase 1, every maximal run of replicated top waves
+    (the fanned fronts split them) and the three solve pieces as programs
+    of its own, each held against its eager body by the rank (the same
+    buffers bit for bit, the refactorization equal to the factor), and the
+    factor handed out stays as it was through later refactorizations (the
+    rank checks it and that its solve is unchanged)."""
+    dp = run["ref"]["dp"]
+    fanned = {t for t, _nb in dp.top_fan}
+    runs, inside = 0, False
+    for t in range(len(dp.top_cls)):
+        if t in fanned:
+            inside = False
+        elif not inside:
+            runs, inside = runs + 1, True
+    solves = ["dist_solve_forward", "dist_solve_top", "dist_solve_backward"]
+    for r in run["res"]:
+        # laplacian_2d(20) has no fanned front: one run of top waves
+        for case, n_top in (("dist", runs), ("lap2d", 1)):
+            rows = r[case]["program_pairs"]
+            names = [row["program"] for row in rows]
+            assert names == ["dist_phase1"] + ["dist_top"] * n_top + solves
+            assert not any(row["replayed"] for row in rows)    # the CPU
+            assert all(len(row["eager_ms_all"])
+                       == len(row["replay_ms_all"]) == 1 for row in rows)
 
 
 def test_not_posdef_minor_matches_reference(run):

@@ -15,6 +15,7 @@ the reference's minor."""
 import numpy as np
 import pytest
 import torch
+from scipy.sparse import identity as sp_identity
 
 import jax
 import jax.numpy as jnp
@@ -151,7 +152,7 @@ def test_one_program_per_key():
 def test_solve_programs_match_reference(program, k):
     """Every device solve system on the reference's own factor (adopted by
     factor_from_numpy), k right-hand sides, two right-hand sides through
-    one program per (system, k) cached on the factor."""
+    one program per (system, k) cached on the plan."""
     Ar, rcm, rsym, rss, rplan = _chol(ref_chol, ref_gen, ref_common, ref_sn,
                                       program=program)
     rf = ref_sn.factorize_super(Ar, rsym, rss, plan=rplan, common=rcm)
@@ -170,12 +171,84 @@ def test_solve_programs_match_reference(program, k):
             x = port_sn.solve_super(f, b, system, cm)
             assert x.shape == b.shape
             assert _rel(x, want) < SOLVE_TOL, system
-            p = port_sn.solve_program(f, system, k, cm)
+            p = port_sn.solve_program(plan, system, k, torch.float64, "cpu",
+                                      cm)
             assert prog is None or p is prog
             prog = p
             xs.append((x, x.copy()))
         assert np.array_equal(*xs[0])
-    assert len(f._cache) == 4
+    wave = program == "pf"
+    f64, cpu = torch.float64, torch.device("cpu")
+    assert {key for key, v in plan._cache.items()
+            if isinstance(v, DeviceProgram)} \
+        == {("solve_" + s_, wave, f64, k, cpu)
+            for s_ in ("A", "LLt", "L", "Lt")}
+    assert set(plan._cache) >= {("solve_factor", wave, f64, cpu)}
+
+
+def _eager_solve(f, b, system, cm):
+    """The solve's body run on ``f``'s own buffers (no program, no bound
+    factor): what each factor's solve must equal bit for bit."""
+    plan = f.plan
+    wave = plan.use_wave(cm)
+    Dv = None
+    if wave:
+        from suitesparse_tpu_torch.cholesky.wave import solve_dinv
+        Dv = solve_dinv(port_sn._solve_wave_plan(plan, cm), f.Lx)
+    perm = torch.as_tensor(f.perm)
+    body = port_sn._solve_body(plan, system, wave, cm, f.Lx, Dv, perm,
+                               torch.argsort(perm))
+    bk = torch.as_tensor(b.reshape(plan.n, -1))
+    return body(bk).numpy().reshape(b.shape)
+
+
+@pytest.mark.parametrize("program", ["pf", "unrolled"])
+def test_two_factors_share_one_solve_program(program):
+    """Two factors of one plan (A and A + 1.5 I) solve alternately (f1,
+    f2, f1) through ONE program per (system, k) and one bound factor on
+    the plan: each solution bit-identical to its own factor's eager solve
+    and within 1e-12 of the reference's solve_super in float64; the
+    binding copies only when the factor changes."""
+    Ar, rcm, rsym, rss, rplan = _chol(ref_chol, ref_gen, ref_common, ref_sn,
+                                      program=program)
+    A, cm, sym, ss, plan = _chol(port_chol, port_gen, port_common, port_sn,
+                                 program=program)
+    port_fs, ref_fs = [], []
+    for beta in SHIFTS:
+        Ab = PortCSC.from_scipy((A.to_scipy()
+                                 + beta * sp_identity(A.ncol)).tocsc())
+        Arb = RefCSC.from_scipy((Ar.to_scipy()
+                                 + beta * sp_identity(A.ncol)).tocsc())
+        port_fs.append(port_sn.factorize_super(Ab, sym, ss, plan=plan,
+                                               common=cm, device="cpu"))
+        ref_fs.append(ref_sn.factorize_super(Arb, rsym, rss, plan=rplan,
+                                             common=rcm))
+    rng = np.random.default_rng(11)
+    b = rng.standard_normal((A.ncol, 3))
+    progs = set()
+    R = None
+    for i in (0, 1, 0, 0):
+        f, rf = port_fs[i], ref_fs[i]
+        for system in ("A", "LLt", "L", "Lt"):
+            x = port_sn.solve_super(f, b, system, cm)
+            assert np.array_equal(x, _eager_solve(f, b, system, cm)), system
+            assert _rel(x, ref_sn.solve_super(rf, b, system, rcm)) \
+                < SOLVE_TOL, system
+            progs.add(id(port_sn.solve_program(plan, system, 3,
+                                               torch.float64, "cpu", cm)))
+        got = port_sn.bind_solve_factor(f, cm)
+        assert R is None or got is R
+        R = got
+        assert R.holds(f) and not R.holds(port_fs[1 - i])
+        assert torch.equal(R.Lx, f.Lx[:plan.total])
+    assert len(progs) == 4
+    # a factor's values changed in place are copied in again
+    f = port_fs[0]
+    port_sn.bind_solve_factor(f, cm)
+    f.Lx.mul_(1.0)
+    assert not R.holds(f)
+    port_sn.bind_solve_factor(f, cm)
+    assert R.holds(f)
 
 
 def test_not_posdef_minor_matches_reference():
@@ -237,13 +310,52 @@ def test_umf_programs_match_reference():
                 xr = ref_lu.umf_solve(nr, b, system, refine=0)
                 xp = port_lu.umf_solve(num, b, system, refine=0)
                 assert xp.shape == b.shape and _rel(xp, xr) <= LU_TOL
-        assert {key[0] for key in num._cache} == {
-            "umf_lsolve", "umf_usolve", "umf_ltsolve", "umf_utsolve"}
-        assert umf_solve_program(num, "lsolve", 4) is \
-            num._cache[("umf_lsolve", False, torch.float64, 4,
-                        torch.device("cpu"))]
+        assert {key[0] for key, v in Sp.plan._cache.items()
+                if isinstance(v, DeviceProgram)} \
+            == {"umf_numeric", "umf_lsolve", "umf_usolve", "umf_ltsolve",
+                "umf_utsolve"}
+        assert umf_solve_program(Sp, "lsolve", 4, False, torch.float64,
+                                 "cpu") is \
+            Sp.plan._cache[("umf_lsolve", False, torch.float64, 4,
+                            torch.device("cpu"))]
     assert torch.equal(nums[0][0].Lb, nums[0][1])
     assert not torch.equal(nums[0][0].Lb, nums[1][0].Lb)
+
+
+def test_two_numerics_share_one_umf_solve_program():
+    """Two numerics of one symbolic solve alternately (n1, n2, n1) through
+    one program per (name, conj, k) on the symbolic's plan: each solution
+    bit-identical to its own numeric's eager solve and within 1e-12 of
+    the reference's umf_solve in float64."""
+    from suitesparse_tpu_torch.lu import multifrontal as port_mf
+    A = cd3d(8)
+    Ar, rc, pc, Sr, Sp = _lu_pair(A)
+    rng = np.random.default_rng(4)
+    pairs = []
+    for scale in (np.ones(A.nnz), 1.0 + 0.2 * rng.random(A.nnz)):
+        A2 = PortCSC(A.indptr, A.indices, A.data * scale, A.shape)
+        A2r = RefCSC(A.indptr, A.indices, A.data * scale, A.shape)
+        pairs.append((port_lu.umf_numeric(A2, Sp, pc, device="cpu"),
+                      ref_lu.umf_numeric(A2r, Sr, rc)))
+    b = rng.standard_normal((A.ncol, 2))
+    progs = set()
+    for i in (0, 1, 0):
+        num, nr = pairs[i]
+        for system in ("A", "At"):
+            xp = port_lu.umf_solve(num, b, system, refine=0)
+            assert _rel(xp, ref_lu.umf_solve(nr, b, system, refine=0)) \
+                <= LU_TOL
+        R = port_mf.bind_umf_numeric(num)
+        assert R.holds(num) and not R.holds(pairs[1 - i][0])
+        for name in ("lsolve", "usolve", "ltsolve", "utsolve"):
+            prog = umf_solve_program(Sp, name, 2, False, torch.float64,
+                                     "cpu")
+            progs.add(id(prog))
+            z = torch.as_tensor(rng.standard_normal((A.ncol, 2)))
+            own = port_mf._umf_solve_body(Sp, name, False, num.Lb, num.Ub,
+                                          num.pivs)(z.clone())
+            assert torch.equal(prog(z), own), name
+    assert len(progs) == 4
 
 
 def _klu_case():
