@@ -56,6 +56,16 @@ the device busy time (union of the kernel intervals), the idle share
 against the median of the unprofiled refactorizations, and the device
 time per kernel group and for the top kernels.
 
+It attributes one eager run of lap3d_44's pf body by the reference's
+phase scopes (``[attrib]``, ``suitesparse_tpu_torch/tools/
+profile_attrib.py``: coarse phases, phase x kernel group, every block_chol
+launch under ``Fpotrf``, eager against replay busy time), times the pf
+program with pieces removed on lap3d_28 in pairs with the full program
+(``[ablate]``, ``tools/ablate_pf.py``), and runs the primitive and
+precision probes (``[probes]``: ``tools/microbench.py``,
+``microbench_dense.py``, ``probe_precision.py``, ``probe_prec_e2e.py``,
+``diag_residual.py``), each reading under 105% of the H100 peak it names.
+
 ``block_chol`` is timed at each (W, Np) of one lap3d_44 factor with 50
 launches queued behind a spin kernel, so that the host's enqueue rate does
 not set the time of a kernel shorter than its launch; it and its yardstick
@@ -173,18 +183,20 @@ DIST_GATHER_MAX = 1e-5         # float32 gather() vs the single-process wave
 DIST_BC_MAX = 1e-5             # float32 block-cyclic vs float64 host
 DIST_TIMEOUT = 600
 DIST_SEED = 11
-# kernel-name fragments of each device-time group in a profile
-GROUPS = (("block_chol", ("block_chol",)),
-          ("getrf", ("getrf", "getf2", "laswp", "lu_unpack",
-                     "unpack_pivots")),
-          ("trsm", ("trsm", "trsv")),
-          ("gemm", ("gemm", "gemv", "cutlass", "xmma", "cublas")),
-          ("segment_reduce", ("segment",)),
-          ("index/scatter", ("index", "scatter", "gather", "put")),
-          ("cat/copy", ("cat", "copy", "memcpy", "memset")),
-          ("elementwise", ("elementwise", "vectorized", "unrolled")),
-          ("reduce", ("reduce",)))
-# the same for a QR refactor (cuSOLVER/MAGMA geqrf and its helpers)
+# the [attrib] phase: one eager pf body of ATTRIB_MATRIX attributed by
+# phase scope (tools/profile_attrib.py), beside a replay's busy time
+ATTRIB_MATRIX = "lap3d_44"
+ATTRIB_SHARE_MIN = 0.95        # eager device time under named scopes
+ATTRIB_BUSY_GAP = 0.05         # |eager - replay| / replay device busy
+# [ablate]: tools/ablate_pf.py's variants, each replay in pairs with full
+ABLATE_MATRIX = "lap3d_28"
+# [probes]: the primitive and precision probes at their smallest settings
+PREC_E2E_MATRIX = "lap3d_20"
+DIAG_MATRIX = "lap3d_20"
+DIAG_STEPS = 3
+# kernel-name fragments of each device-time group of a QR refactor
+# (cuSOLVER/MAGMA geqrf and its helpers); the Cholesky and LU groups are
+# profile_attrib.KERNEL_GROUPS
 QR_GROUPS = (("geqrf", ("geqr", "larfg", "larft", "larfb", "geqrf")),
              ("orgqr/householder", ("orgqr", "ungqr", "orgtr", "larf")),
              ("gemm", ("gemm", "gemv", "cutlass", "xmma", "cublas")),
@@ -254,6 +266,7 @@ def busy_ms(fn, reps: int = 20, tries: int = 3) -> float:
     ``tries`` times."""
     import torch
     from torch.profiler import ProfilerActivity
+    from suitesparse_tpu_torch.tools.profile_attrib import busy_us
     fn()
     sync()
     path = os.path.join(PROFILE_DIR, "busy.json")
@@ -272,7 +285,7 @@ def busy_ms(fn, reps: int = 20, tries: int = 3) -> float:
                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
                  and "dur" in e]
         if spans:
-            return _busy_us(spans) / 1e3 / calls
+            return busy_us(spans) / 1e3 / calls
         log(f"[kernel] busy_ms: trace {attempt} of {tries} recorded no "
             f"device work")
     raise RuntimeError(f"check failed: {tries} traces recorded no device "
@@ -427,27 +440,8 @@ def factor_shapes(pfp):
     return shapes
 
 
-def _group(name: str, groups=GROUPS) -> str:
-    low = name.lower()
-    for g, keys in groups:
-        if any(k in low for k in keys):
-            return g
-    return "other"
-
-
-def _busy_us(spans) -> float:
-    """Length of the union of (start, end) intervals."""
-    busy, end = 0.0, -1.0
-    for s, e in sorted(spans):
-        if e <= end:
-            continue
-        busy += e - max(s, end)
-        end = e
-    return busy
-
-
 def profile_refactor(name, run, refactor_ms: float, outdir: str,
-                     groups=GROUPS) -> dict:
+                     groups=None) -> dict:
     """Profile one refactorization ``run()`` with torch.profiler and break
     its device time down by kernel group.  The profiler slows the host, so
     the idle share is taken against ``refactor_ms``, the median of the
@@ -455,6 +449,10 @@ def profile_refactor(name, run, refactor_ms: float, outdir: str,
     beside it."""
     import torch
     from torch.profiler import ProfilerActivity
+    from suitesparse_tpu_torch.tools.profile_attrib import (KERNEL_GROUPS,
+                                                            busy_us,
+                                                            kernel_group)
+    groups = groups or KERNEL_GROUPS
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         wall, _ = host_time(run)
@@ -466,10 +464,10 @@ def profile_refactor(name, run, refactor_ms: float, outdir: str,
     check(kern, f"{name}: the profiler recorded no device kernels")
     by_group, by_name = {}, {}
     for e in kern:
-        g = _group(e["name"], groups)
+        g = kernel_group(e["name"], groups)
         by_group[g] = by_group.get(g, 0.0) + e["dur"]
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
-    busy_ms = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in kern]) / 1e3
+    busy_ms = busy_us([(e["ts"], e["ts"] + e["dur"]) for e in kern]) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     calls = {}
     for e in kern:
@@ -719,6 +717,8 @@ def run_matrix(name: str, reps: int):
     prof_eager = profile_refactor(f"{name}_eager", lambda: prog.eager(vd),
                                   pf_pairs["eager_ms"], PROFILE_DIR)
     log("[profile] " + json.dumps(prof_eager))
+    if name == ATTRIB_MATRIX:
+        run_attrib(name, prog, vd, per_factor)
 
     # the solves, in pairs: A with perm and invperm inside the program;
     # one program per pattern, reading the bound factor
@@ -847,6 +847,97 @@ def run_matrix(name: str, reps: int):
                block_chol_launches_per_factor=per_factor)
     log(f"[{name}] " + json.dumps(row))
     return row, factor_shapes(pfp)
+
+
+def run_attrib(name, prog, vd, per_factor) -> dict:
+    """[attrib]: one eager run of the pf program's body attributed to the
+    reference's phase scopes by tools/profile_attrib.py (coarse phases,
+    the phase x kernel group table, the top scopes and what is left),
+    beside one replay's device busy time and kernel count.  Checks: at
+    least ATTRIB_SHARE_MIN of the eager device time under named scopes,
+    every block_chol launch of the body under an Fpotrf scope (a factor's
+    count), and the eager and replay busy times within ATTRIB_BUSY_GAP."""
+    from suitesparse_tpu_torch.tools import profile_attrib
+    t0 = time.perf_counter()
+    res = profile_attrib.attribute_pf(prog, vd, PROFILE_DIR, name)
+    profile_attrib.print_attribution(res, detail=True)
+    e, r = res["eager"], res["replay"]
+    cc = e["cross_count"]
+    in_potrf = cc.get("Fpotrf", {}).get("block_chol", 0)
+    every = sum(c.get("block_chol", 0) for c in cc.values())
+    gap = abs(e["busy_ms"] - r["busy_ms"]) / r["busy_ms"]
+    out = dict(matrix=name, scope_ranges=sum(res["scope_ranges"].values()),
+               scope_labels=len(res["scope_ranges"]),
+               attributed_share=e["attributed_share"],
+               block_chol_in_fpotrf=in_potrf, block_chol_eager=every,
+               block_chol_per_factor=per_factor,
+               eager_busy_ms=e["busy_ms"], eager_kernels=e["ops"],
+               replay_busy_ms=r["busy_ms"], replay_kernels=r["ops"],
+               busy_gap=gap, no_launch_record=e["no_launch_record"],
+               phase_ms=e["phase_ms"], cross_ms=e["cross_ms"],
+               unattributed_top=list(e["unattributed_ms"].items())[:8],
+               seconds=time.perf_counter() - t0)
+    log("[attrib] " + json.dumps(out))
+    check(e["attributed_share"] >= ATTRIB_SHARE_MIN,
+          f"{name}: {e['attributed_share']:.3f} of the eager device time "
+          f"under named scopes")
+    check(in_potrf == every == per_factor,
+          f"{name}: block_chol in Fpotrf {in_potrf}, in the body {every}, "
+          f"a factor {per_factor}")
+    check(gap <= ATTRIB_BUSY_GAP, f"{name}: eager busy {e['busy_ms']:.2f} "
+          f"against replay {r['busy_ms']:.2f} ms")
+    return out
+
+
+def run_ablate() -> dict:
+    """[ablate]: tools/ablate_pf.py on ABLATE_MATRIX: full (checked bit
+    for bit and node for node against pf_program) and each variant,
+    replays in pairs."""
+    from suitesparse_tpu_torch.tools import ablate_pf, profile_attrib
+    t0 = time.perf_counter()
+    A, sym, pfp, vals = profile_attrib.pf_setup(ABLATE_MATRIX, "cuda")
+    res = ablate_pf.ablate(pfp, vals)
+    check(set(res) == set(ablate_pf.VARIANTS) - {"full"}
+          and all(r["ms"] > 0 and r["nodes"] > 0 for r in res.values()),
+          f"ablate: {res}")
+    out = dict(matrix=ABLATE_MATRIX, instr=int(len(pfp.instr_cls)),
+               variants=res, seconds=time.perf_counter() - t0)
+    log("[ablate] " + json.dumps(out))
+    return out
+
+
+def run_probes() -> dict:
+    """[probes]: the primitive and precision probes of the port's tools,
+    each at its smallest setting; every reading under 105% of the H100
+    peak it names (the tools raise otherwise), the matmul settings back
+    to full float32 after the precision probe, and the refined residuals
+    of the end-to-end probe (full float32) and of diag_residual within
+    RESIDUAL_MAX."""
+    import torch
+    from suitesparse_tpu_torch.tools import (diag_residual, microbench,
+                                             microbench_dense,
+                                             probe_prec_e2e,
+                                             probe_precision)
+    t0 = time.perf_counter()
+    out = dict(microbench=microbench.main(),
+               microbench_dense={"x".join(map(str, k)): v for k, v in
+                                 microbench_dense.main().items()},
+               precision=probe_precision.main())
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "probe_precision left TF32 on")
+    out["prec_e2e"] = probe_prec_e2e.main(PREC_E2E_MATRIX)
+    check(all(r["finite"] for r in out["prec_e2e"].values())
+          and out["prec_e2e"]["highest"]["residuals"][-1] <= RESIDUAL_MAX,
+          f"prec_e2e: {out['prec_e2e']}")
+    diag = diag_residual.main(DIAG_MATRIX, DIAG_STEPS)
+    out["diag_residual"] = {f"trsm_inv={t} {p}": [h[0] for h in hist]
+                            for (t, p), hist in diag.items()}
+    check(all(hist[-1][0] <= RESIDUAL_MAX for hist in diag.values()),
+          f"diag_residual: {out['diag_residual']}")
+    out["seconds"] = time.perf_counter() - t0
+    log("[probes] " + json.dumps(out))
+    return out
 
 
 def run_unrolled() -> dict:
@@ -2600,6 +2691,12 @@ def main() -> int:
     log(f"[main] block_chol launches on the main path: {launches}")
     kline = kernel_line(shapes, launches, kind)
     log(f"[time] cholesky phases done at {time.perf_counter() - t_start:.1f} s")
+    run_ablate()
+    free_device_memory()
+    run_probes()
+    free_device_memory()
+    log(f"[time] ablation and probe phases done at "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     # the sparse-product slice
     from suitesparse_tpu_torch.ops.spmv import bcsr_spmm

@@ -25,6 +25,14 @@ relied on dynamic_update_slice aliasing.  ``pf_program`` makes it a device
 program (utils/programs.py): captured once per plan into a CUDA graph and
 replayed for every refactorization on the card.
 
+Phase scopes.  The assembly and each piece of a factor wave and of a pair
+projection run inside a ``torch.profiler.record_function`` range labelled
+as the reference's ``jax.named_scope`` (``Assemble``, ``Fslice8x32``,
+``Qeinsum32g8``, ...), so that ``tools/profile_attrib.py`` can attribute
+the device time of the eager body by phase.  A range is host code only: a
+captured graph holds none of it.  It is entered only while a profiler
+records (``_scope``); otherwise it costs one flag test.
+
 Update-slot convention: a slot holds the accumulated incoming update in
 LOWER-triangle-canonical form until its supernode factors (the factor
 step symmetrizes), then the FULL symmetric outgoing update U = B Bᵀ+acc.
@@ -32,9 +40,11 @@ step symmetrizes), then the FULL symmetric outgoing update U = B Bᵀ+acc.
 from __future__ import annotations
 
 import dataclasses
+from contextlib import nullcontext
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..core.sparse import INDEX
 from ..utils.device import resolve_device, torch_dtype
@@ -50,6 +60,18 @@ __all__ = ["PFPlan", "build_pf_plan", "pf_numeric", "pf_program"]
 # 128-wide slabs); wider classes take torch.linalg's batched Cholesky and
 # triangular solve, as the reference's SSTPU_POTRF_MAXNP default does.
 _POTRF_MAXNP = 8192
+
+
+_NO_RANGE = nullcontext()
+
+
+def _scope(name: str):
+    """The profiler range ``name`` (``record_function``) while a profiler
+    records, else a shared no-op: an unrecorded ``record_function`` still
+    costs ~10 us of host time, and a lap3d_44 refactor enters 1,300."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _NO_RANGE
 
 
 def _pow2ceil(x: int) -> int:
@@ -719,42 +741,52 @@ def _factor_step(Np, Mb, W, mode, L, K, bf16=False, trsm_inv=True):
     _POTRF_MAXNP, torch.linalg's Cholesky and triangular solve), SYRK
     (from bfloat16 inputs when ``bf16``) plus the lower-canonical incoming
     update, the panel write, and either the published full update (mode
-    1) or the 1-hop sorted-segment scatter (mode 2)."""
+    1) or the 1-hop sorted-segment scatter (mode 2).  Each piece runs in a
+    ``_scope`` named as the reference's named scope (``Fslice``,
+    ``Fpotrf``, ``Fsyrk``, ``Fwrite``, ``Fscat`` + f"{Np}x{Mb}")."""
     Mp = Np + Mb
+    sl, po, sy, wr, sc = (f"{k}{Np}x{Mb}" for k in
+                          ("Fslice", "Fpotrf", "Fsyrk", "Fwrite", "Fscat"))
 
     def step(Fx, pos, ops):
         pe = ops["padeye"][pos]
         rm = ops["rowmask"][pos]
         cmk = ops["colmask"][pos]
-        P = _panels(Fx, ops["base"][pos], W, Mp, Np)
-        if trsm_inv and Np <= _POTRF_MAXNP:
-            newP = panel_factor(P, pe, rm, cmk)         # masked output
-        else:
-            # the upper triangle of the diagonal block may hold junk
-            T = torch.tril(P[:, :Np, :])
-            Tfull = T + torch.tril(T, -1).transpose(1, 2)
-            C = cholesky_or_nan(Tfull + torch.diag_embed(pe))
-            if Mb:
-                Bm = torch.linalg.solve_triangular(
-                    C.transpose(1, 2), P[:, Np:, :], upper=True, left=False)
-                newP = torch.cat([C, Bm], dim=1)
+        with _scope(sl):
+            P = _panels(Fx, ops["base"][pos], W, Mp, Np)
+        with _scope(po):
+            if trsm_inv and Np <= _POTRF_MAXNP:
+                newP = panel_factor(P, pe, rm, cmk)     # masked output
             else:
-                newP = C
-            newP = newP * rm[:, :, None] * cmk[:, None, :]
+                # the upper triangle of the diagonal block may hold junk
+                T = torch.tril(P[:, :Np, :])
+                Tfull = T + torch.tril(T, -1).transpose(1, 2)
+                C = cholesky_or_nan(Tfull + torch.diag_embed(pe))
+                if Mb:
+                    Bm = torch.linalg.solve_triangular(
+                        C.transpose(1, 2), P[:, Np:, :], upper=True,
+                        left=False)
+                    newP = torch.cat([C, Bm], dim=1)
+                else:
+                    newP = C
+                newP = newP * rm[:, :, None] * cmk[:, None, :]
         if Mb:
-            Bm = newP[:, Np:, :]
-            slot = _panels(Fx, ops["ubs"][pos], W, Mb, Mb)
-            acc = torch.tril(slot)     # lower-canonical incoming updates
-            U = syrk(Bm, bf16) + acc + torch.tril(acc, -1).transpose(1, 2)
-        P.copy_(newP)
-        if Mb and mode == 1:
-            slot.copy_(U)              # publish the full symmetric update
+            with _scope(sy):
+                Bm = newP[:, Np:, :]
+                slot = _panels(Fx, ops["ubs"][pos], W, Mb, Mb)
+                acc = torch.tril(slot)   # lower-canonical incoming updates
+                U = syrk(Bm, bf16) + acc + torch.tril(acc, -1).transpose(1, 2)
+        with _scope(wr):
+            P.copy_(newP)
+            if Mb and mode == 1:
+                slot.copy_(U)            # publish the full symmetric update
         if Mb and mode == 2 and L:
-            seg = segment_sum(U.reshape(-1)[ops["src"][pos]],
-                              ops["lens"][pos])
-            # sorted, unique targets: one write per entry, no atomics
-            dst = ops["dst"][pos]
-            Fx[dst] += seg * ops["sgn"][pos]
+            with _scope(sc):
+                seg = segment_sum(U.reshape(-1)[ops["src"][pos]],
+                                  ops["lens"][pos])
+                # sorted, unique targets: one write per entry, no atomics
+                dst = ops["dst"][pos]
+                Fx[dst] += seg * ops["sgn"][pos]
     return step
 
 
@@ -796,7 +828,10 @@ def _pair_step(Mbc, G, Pq, Npt, Mbt, pc, uc, spanq, bf16=False):
     ride the contraction axis, so the placement patch materializes per
     parent, (Pq, Mft, Npt).  Children are slab-gathered by offset; patches
     land by one contiguous read-modify-write when the parent slots are
-    consecutive, else by a slab scatter-add.
+    consecutive, else by a slab scatter-add.  The pieces run in ``_scope``s
+    named as the reference's named scopes (``Qgather``,
+    ``QplaceW``, ``QplaceR``, ``Qeinsum``, ``Qscat`` + f"{Mbc}g{G}";
+    with Mbt, ``Qeinsum`` and ``Qscat`` twice, as there).
 
     bf16: the reference's bfloat16 placement -- the placed update entries
     rounded to bfloat16, then summed over the children in the factor's
@@ -804,47 +839,59 @@ def _pair_step(Mbc, G, Pq, Npt, Mbt, pc, uc, spanq, bf16=False):
     placed rows and multiplying in the factor's dtype is that function."""
     Mft = Npt + Mbt
     ssz = Mbc * Mbc
+    ga, pw, pr, ei, sc = (f"{k}{Mbc}g{G}" for k in
+                          ("Qgather", "QplaceW", "QplaceR", "Qeinsum",
+                           "Qscat"))
 
     def step(Fx, pos, ops):
         dtype = Fx.dtype
         idxf = ops["idxf"][pos]                          # (Pq, G, Mft)
-        if spanq:
-            # streamed span read + large-row take (slab grid)
-            g0 = ops["g0"][pos]
-            slab = Fx[g0:g0 + spanq * ssz].view(spanq, ssz)
-            Uc = slab[ops["gsel"][pos]]
-        else:
-            idx = ops["uoff"][pos][..., None] + torch.arange(
-                ssz, device=Fx.device)
-            Uc = Fx[idx]
-        Uc = Uc.reshape(Pq, G, Mbc, Mbc)
-        mcols = torch.arange(Mbc, device=Fx.device)
-        Wh = (idxf[..., None] == mcols).to(dtype)        # (Pq, G, Mft, Mbc)
-        # row placement: a one-hot product for Mbc <= 256, a row gather
-        # (with Mbc as the index of an appended zero row) above
-        if Mbc <= 256:
-            R = Wh @ Uc
-        else:
-            Ucz = torch.cat([Uc, Uc.new_zeros((Pq, G, 1, Mbc))], dim=2)
-            R = torch.gather(Ucz, 2, idxf[..., None].expand(Pq, G, Mft, Mbc))
-        if bf16:
-            R = R.to(torch.bfloat16).to(dtype)
-        S = torch.einsum("pgfm,pghm->pfh", R, Wh[:, :, :Npt, :])
-        if pc:
-            # contiguous parent slots: ONE read-modify-write; pad rows
-            # continue the run and subtract exact zeros
-            p0 = ops["pdst0"][pos]
-            Fx[p0:p0 + Pq * Mft * Npt] -= S.reshape(-1)
-        else:
-            _slab_add(Fx, ops["prows"][pos], -S.reshape(Pq, Mft * Npt))
-        if Mbt:
-            St = torch.tril(torch.einsum("pgfm,pghm->pfh", R[:, :, Npt:, :],
-                                         Wh[:, :, Npt:, :]))
-            if uc:
-                u0 = ops["udst0"][pos]
-                Fx[u0:u0 + Pq * Mbt * Mbt] += St.reshape(-1)
+        with _scope(ga):
+            if spanq:
+                # streamed span read + large-row take (slab grid)
+                g0 = ops["g0"][pos]
+                slab = Fx[g0:g0 + spanq * ssz].view(spanq, ssz)
+                Uc = slab[ops["gsel"][pos]]
             else:
-                _slab_add(Fx, ops["urows"][pos], St.reshape(Pq, Mbt * Mbt))
+                idx = ops["uoff"][pos][..., None] + torch.arange(
+                    ssz, device=Fx.device)
+                Uc = Fx[idx]
+            Uc = Uc.reshape(Pq, G, Mbc, Mbc)
+        with _scope(pw):
+            mcols = torch.arange(Mbc, device=Fx.device)
+            Wh = (idxf[..., None] == mcols).to(dtype)    # (Pq, G, Mft, Mbc)
+        with _scope(pr):
+            # row placement: a one-hot product for Mbc <= 256, a row
+            # gather (with Mbc as the index of an appended zero row) above
+            if Mbc <= 256:
+                R = Wh @ Uc
+            else:
+                Ucz = torch.cat([Uc, Uc.new_zeros((Pq, G, 1, Mbc))], dim=2)
+                R = torch.gather(Ucz, 2,
+                                 idxf[..., None].expand(Pq, G, Mft, Mbc))
+            if bf16:
+                R = R.to(torch.bfloat16).to(dtype)
+        with _scope(ei):
+            S = torch.einsum("pgfm,pghm->pfh", R, Wh[:, :, :Npt, :])
+        with _scope(sc):
+            if pc:
+                # contiguous parent slots: ONE read-modify-write; pad rows
+                # continue the run and subtract exact zeros
+                p0 = ops["pdst0"][pos]
+                Fx[p0:p0 + Pq * Mft * Npt] -= S.reshape(-1)
+            else:
+                _slab_add(Fx, ops["prows"][pos], -S.reshape(Pq, Mft * Npt))
+        if Mbt:
+            with _scope(ei):
+                St = torch.tril(torch.einsum(
+                    "pgfm,pghm->pfh", R[:, :, Npt:, :], Wh[:, :, Npt:, :]))
+            with _scope(sc):
+                if uc:
+                    u0 = ops["udst0"][pos]
+                    Fx[u0:u0 + Pq * Mbt * Mbt] += St.reshape(-1)
+                else:
+                    _slab_add(Fx, ops["urows"][pos],
+                              St.reshape(Pq, Mbt * Mbt))
     return step
 
 
@@ -876,7 +923,8 @@ def pf_program(pfp: PFPlan, dtype, syrk_bf16=False, trsm_inv=True,
                   in zip(pfp.instr_cls.tolist(), pfp.instr_pos.tolist())]
 
         def body(vals):
-            Fx = assemble(vals, a_src, a_dst, pfp.buf)
+            with _scope("Assemble"):
+                Fx = assemble(vals, a_src, a_dst, pfp.buf)
             for step, cops, pos in stream:
                 step(Fx, pos, cops)
             return Fx

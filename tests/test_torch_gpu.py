@@ -753,3 +753,91 @@ def test_loop_programs_match_the_one_sync_loop_on_the_card(steps):
         lambda: alg._bfs_loop(rows, cols, n, 0, steps, cache))
     assert d == depth and torch.equal(level, level1)
     assert syncs <= -(-d // steps) + 1, (syncs, d)
+
+
+def _pf_on_card(k):
+    """lap3d_k's pf plan and float32 values on the card."""
+    from suitesparse_tpu_torch.cholesky.super_numeric import (
+        _assemble_values, build_plan)
+    A = laplacian_3d(k)
+    cm = default_common()
+    cm.cholesky.supernodal = "supernodal"
+    sym = analyze(A, cm)
+    ss = super_symbolic(A, sym, cm)
+    pfp = build_plan(ss).pf_plan(cm)
+    return pfp, torch.as_tensor(_assemble_values(A, sym, ss, np.float32),
+                                device="cuda")
+
+
+@pytest.mark.gpu
+def test_block_chol_launches_of_an_eager_pf_body_land_in_fpotrf():
+    """lap3d_16: every block_chol kernel of one profiled eager pf body
+    (launched through ctypes, outside any torch operator) is attributed
+    to an Fpotrf scope, as many as a replay launches."""
+    _need_card()
+    from suitesparse_tpu_torch.cholesky.pf import pf_program
+    from suitesparse_tpu_torch.tools import profile_attrib
+    pfp, vals = _pf_on_card(16)
+    prog = pf_program(pfp, np.float32, device="cuda")
+    res = profile_attrib.attribute_pf(prog, vals)
+    want = prog.per_replay[0]
+    cc = res["eager"]["cross_count"]
+    assert want > 0 and cc["Fpotrf"].get("block_chol") == want
+    assert sum(c.get("block_chol", 0) for c in cc.values()) == want
+    assert res["eager"]["attributed_share"] >= 0.95
+
+
+@pytest.mark.gpu
+def test_scopes_leave_the_pf_graph_unchanged(monkeypatch):
+    """The pf program captured as shipped (no profiler records during a
+    capture, so its ranges are no-ops) and again with every range entered
+    through record_function: the same node count, bit-identical replays,
+    both equal to the eager body."""
+    _need_card()
+    from torch.profiler import record_function
+    from suitesparse_tpu_torch.cholesky import pf
+    pfp, vals = _pf_on_card(16)
+    prog = pf.pf_program(pfp, np.float32, device="cuda")
+    got = prog(vals)
+    monkeypatch.setattr(pf, "_scope", record_function)
+    pfp._cache.pop(prog.key)
+    ranged = pf.pf_program(pfp, np.float32, device="cuda")
+    assert ranged is not prog
+    assert torch.equal(ranged(vals), got) and ranged.nodes == prog.nodes > 0
+    assert torch.equal(prog.eager(vals), got)
+
+
+@pytest.mark.gpu
+def test_scoped_pf_capture_syncs_nothing(monkeypatch):
+    """torch.cuda.set_sync_debug_mode("error") around the pf program's
+    warm-up, capture, replay and eager body, every range entered through
+    record_function: the ranges wait on nothing."""
+    _need_card()
+    from torch.profiler import record_function
+    from suitesparse_tpu_torch.cholesky import pf
+    pfp, vals = _pf_on_card(12)
+    monkeypatch.setattr(pf, "_scope", record_function)
+    prog = pf.pf_program(pfp, np.float32, device="cuda")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = prog(vals)
+        again = prog(vals)
+        eager = prog.eager(vals)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert prog.graph is not None
+    assert torch.equal(got, again) and torch.equal(got, eager)
+
+
+@pytest.mark.gpu
+def test_probe_precision_leaves_tf32_off():
+    """After the precision probe on the card, float32 products are full
+    float32 again and a device program may be captured."""
+    _need_card()
+    from suitesparse_tpu_torch.tools import probe_precision
+    from suitesparse_tpu_torch.utils import programs
+    out = probe_precision.main(m=512, reps=2)
+    assert out["highest"]["relerr"] < out["high"]["relerr"]
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    programs._check_precision()

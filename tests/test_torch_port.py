@@ -68,11 +68,19 @@ import suitesparse_tpu_torch.models.ssmult
 import suitesparse_tpu_torch.qr
 import suitesparse_tpu_torch.qr.spqr
 import suitesparse_tpu_torch.tools
+import suitesparse_tpu_torch.tools.ablate_pf
 import suitesparse_tpu_torch.tools.bench_bcsr
+import suitesparse_tpu_torch.tools.bench_pf
+import suitesparse_tpu_torch.tools.diag_residual
 import suitesparse_tpu_torch.tools.dist_scaling
 import suitesparse_tpu_torch.tools.klu_host
+import suitesparse_tpu_torch.tools.microbench
+import suitesparse_tpu_torch.tools.microbench_dense
 import suitesparse_tpu_torch.tools.microbench_dispatch
 import suitesparse_tpu_torch.tools.multihost_dryrun
+import suitesparse_tpu_torch.tools.probe_prec_e2e
+import suitesparse_tpu_torch.tools.probe_precision
+import suitesparse_tpu_torch.tools.profile_attrib
 import suitesparse_tpu_torch.utils
 import suitesparse_tpu_torch.utils.serialize
 import chip_smoke
