@@ -86,6 +86,17 @@ their eager bodies; PageRank and BFS run as loop programs of 1, 4, 8 and
 16 steps against the one-sync loops (host syncs counted); single spmv and
 spgemm applies are timed eager against replay.
 
+After the Cholesky phases, ``[bench]`` runs the port's benchmark entry
+point, ``python -m suitesparse_tpu_torch.bench``, on the reference's
+headline matrix lap3d_64 (n = 262,144) without the splu baseline, in its
+own processes: the reference's row (refactor, 1- and 32-RHS solve rates,
+residual after 3 float64 steps, the bfloat16 SYRK A/B), the pf program's
+capture, graph nodes and pool, and peak memory; its block_chol launches
+count on the main path.  Then ``python -m
+suitesparse_tpu_torch.bench_extra`` gives the KLU, UMFPACK, SPQR and
+GraphBLAS rows at circuit_4000, randunsym_5000 and lap3d_40.  Its files
+go to ``build/bench/smoke``.
+
 Output: one line per phase, then a ``{"kernels": [...]}`` line, the card's
 name and power limit (nvidia-smi), and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -102,6 +113,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MATRICES = ("lap3d_44", "fem3d_80000")
+TIMED_MATRIX = MATRICES[0]         # block_chol is timed at its shapes
 PROFILE_DIR = os.path.join(ROOT, "build", "profiles")
 RESIDUAL_MAX = 1e-11          # after 3 float64 refinement steps
 # f32 peak outside the tensor cores, dense TF32 tensor-core peak and HBM
@@ -194,6 +206,20 @@ ABLATE_MATRIX = "lap3d_28"
 PREC_E2E_MATRIX = "lap3d_20"
 DIAG_MATRIX = "lap3d_20"
 DIAG_STEPS = 3
+# [bench]: the port's bench entry point (suitesparse_tpu_torch/bench.py) on
+# the reference's headline matrix with 3 timed refactors where the
+# reference times 5 (each ~0.41 s, twice: float32 and bf16); then
+# bench_extra's four rows at the sizes the [lu], [qr] and [ops] phases run
+BENCH_MATRIX = "lap3d_64"
+BENCH_REPEATS = 3
+BENCH_TIMEOUT = 900
+BENCH_OUT = os.path.join(ROOT, "build", "bench", "smoke")
+BENCH_EXTRA_ARGS = ("--klu", "circuit_4000", "--umfpack", "randunsym_5000",
+                    "--spqr", "randunsym_5000", "--graphblas", "lap3d_40")
+BENCH_REF_KEYS = ("name", "n", "fl", "lnz", "t_analyze", "t_factor",
+                  "gflops", "t_solve", "solve_gflops", "solve32_gflops",
+                  "residual", "t_base", "bf16_gflops", "bf16_residual",
+                  "t_first", "pct_gemm_peak")
 # kernel-name fragments of each device-time group of a QR refactor
 # (cuSOLVER/MAGMA geqrf and its helpers); the Cholesky and LU groups are
 # profile_attrib.KERNEL_GROUPS
@@ -425,21 +451,6 @@ def phase_small_parity():
         f"{err:.3e} (tol 1e-12); block_chol launches {launched}")
 
 
-def factor_shapes(pfp):
-    """{(W, Np): launches} of block_chol in one pass-forward factor."""
-    from suitesparse_tpu_torch.cholesky.pf import _POTRF_MAXNP
-    nf = len(pfp.fmeta)
-    shapes = {}
-    for cid in pfp.instr_cls.tolist():
-        if cid >= nf:
-            continue
-        Np, Mb, W = pfp.fmeta[cid][:3]
-        if Np <= _POTRF_MAXNP:
-            bb = min(Np, 128)
-            shapes[(W, bb)] = shapes.get((W, bb), 0) + Np // bb
-    return shapes
-
-
 def profile_refactor(name, run, refactor_ms: float, outdir: str,
                      groups=None) -> dict:
     """Profile one refactorization ``run()`` with torch.profiler and break
@@ -648,6 +659,7 @@ def run_matrix(name: str, reps: int):
     each route, the inverted diagonal blocks, the 1- and 32-RHS solves in
     pairs, and float64 refinement."""
     import torch
+    from suitesparse_tpu_torch.cholesky.pf import block_chol_shapes
     from suitesparse_tpu_torch.cholesky import (analyze, factorize_super,
                                                 residual_norm, solve_super,
                                                 super_symbolic)
@@ -688,7 +700,7 @@ def run_matrix(name: str, reps: int):
     check(f.Lx.dtype == torch.float32, f"{name}: factor dtype {f.Lx.dtype}")
     check(prog.graph is not None, f"{name}: the pf program was not captured")
     check(per_factor > 0, f"{name}: block_chol not launched")
-    check(per_factor == sum(factor_shapes(pfp).values())
+    check(per_factor == sum(block_chol_shapes(pfp).values())
           and prog.per_replay == (per_factor,),
           f"{name}: launches {per_factor} (per replay {prog.per_replay}) "
           f"differ from the plan's count")
@@ -846,7 +858,7 @@ def run_matrix(name: str, reps: int):
                peak_mem_gib=peak / 2**30,
                block_chol_launches_per_factor=per_factor)
     log(f"[{name}] " + json.dumps(row))
-    return row, factor_shapes(pfp)
+    return row, block_chol_shapes(pfp)
 
 
 def run_attrib(name, prog, vd, per_factor) -> dict:
@@ -940,6 +952,86 @@ def run_probes() -> dict:
     return out
 
 
+def bench_module(module, args) -> str:
+    """stdout of ``python -m module args`` from the checkout's root (its
+    log goes to this script's stderr); a nonzero exit fails the check."""
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                          stdout=subprocess.PIPE, text=True,
+                          timeout=BENCH_TIMEOUT)
+    check(proc.returncode == 0, f"{module} exited {proc.returncode}")
+    return proc.stdout
+
+
+def run_bench() -> dict:
+    """[bench]: ``python -m suitesparse_tpu_torch.bench`` on BENCH_MATRIX
+    with --no-baseline (its matrix in a process of its own), then
+    ``bench_extra``'s four rows.  Checks: the last line's shape; every key
+    of the reference's row non-null but t_base; the device-resident
+    solve's residual and the one after 3 float64 steps; two refactors bit
+    for bit; every rate (GEMM roofline, factor, solves, bf16 factor) under
+    105% of the H100 peak of its type; block_chol launched per factor as
+    often as the plan says; four extra rows with finite values."""
+    from suitesparse_tpu_torch.tools.microbench import PEAK_MARGIN, PEAKS
+    t0 = time.perf_counter()
+    out = bench_module("suitesparse_tpu_torch.bench", (
+        "--matrix", BENCH_MATRIX, "--no-baseline", "--repeats",
+        str(BENCH_REPEATS), "--out", BENCH_OUT))
+    last = json.loads(out.strip().splitlines()[-1])
+    check(set(last) == {"metric", "value", "unit", "vs_baseline"}
+          and last["metric"] == f"supernodal_cholesky_factor_gflops"
+                                f"[{BENCH_MATRIX}]"
+          and last["vs_baseline"] is None, f"bench last line {last}")
+    with open(os.path.join(BENCH_OUT, "detail.json")) as fh:
+        detail = json.load(fh)
+    (row,) = detail["cholesky"]
+    roof = detail["gemm_roofline_gflops"]
+    missing = [k for k in BENCH_REF_KEYS if k != "t_base" and row[k] is None]
+    check(not missing and row["t_base"] is None,
+          f"bench: null keys {missing}")
+    check(row["residual_device"] < 1e-4,
+          f"bench: device solve residual {row['residual_device']:.2e}")
+    check(row["residual"] <= RESIDUAL_MAX,
+          f"bench: residual {row['residual']:.3e} > {RESIDUAL_MAX}")
+    check(row["bit_identical"], "bench: two refactors differ")
+    rates = dict(gemm_float32=(roof["float32"], "float32"),
+                 gemm_bfloat16=(roof["bfloat16"], "bfloat16"),
+                 factor=(row["gflops"], "float32"),
+                 solve=(row["solve_gflops"], "float32"),
+                 solve32=(row["solve32_gflops"], "float32"),
+                 bf16_factor=(row["bf16_gflops"], "bfloat16"))
+    for what, (gf, peak) in rates.items():
+        check(0 < gf * 1e9 <= PEAK_MARGIN * PEAKS[peak],
+              f"bench: {what} {gf:.1f} GFLOP/s against the {peak} peak")
+    check(row["block_chol_timed_launches"]
+          == row["block_chol_plan"] * row["block_chol_timed_calls"]
+          and row["block_chol_plan"] > 0,
+          f"bench: block_chol {row['block_chol_timed_launches']} launches in "
+          f"{row['block_chol_timed_calls']} refactors, the plan's count "
+          f"{row['block_chol_plan']} a factor")
+    log(f"[bench] {json.dumps(row)}")
+    log(f"[bench] {BENCH_MATRIX}: capture {row['capture_s']:.2f} s (warm-up "
+        f"{row['warmup_s']:.2f} s), {row['graph_nodes']} graph nodes, pool "
+        f"{row['graph_pool_gib']:.2f} GiB; peak memory "
+        f"{row['peak_mem_gib']:.2f} GiB; GEMM roofline {json.dumps(roof)}")
+    t_extra = time.perf_counter()
+    out = bench_module("suitesparse_tpu_torch.bench_extra",
+                       BENCH_EXTRA_ARGS + ("--out", BENCH_OUT))
+    last = out.strip().splitlines()[-1]
+    check(last.startswith("RESULT:"), f"bench_extra last line {last!r}")
+    extra = json.loads(last[len("RESULT:"):])
+    check(len(extra) == 4 and all(
+        np.isfinite(r["value"]) and r["value"] > 0 for r in extra),
+        f"bench_extra rows {extra}")
+    for r in extra:
+        log(f"[bench] extra {json.dumps(r)}")
+    return dict(row=row, extra=extra,
+                block_chol_launches=row["block_chol_launches"],
+                block_chol_shapes={(W, Np): c for W, Np, c
+                                   in row["block_chol_shapes"]},
+                extra_s=time.perf_counter() - t_extra,
+                seconds=time.perf_counter() - t0)
+
+
 def run_unrolled() -> dict:
     """lap3d_10 (few buckets: the unrolled program) in float32: its
     replay against its eager body, bit for bit, and a solve."""
@@ -975,12 +1067,16 @@ def run_unrolled() -> dict:
 
 
 def kernel_line(shapes, launches, dev_kind):
-    """Time block_chol at the (W, Np) shapes of one lap3d_44 factor on the
-    device's clock, queued behind a spin (``kernel_ms``: the gaps between
-    launches included), beside its plain version, its bound and the
-    yardstick ``torch.linalg.cholesky_ex`` on the precomputed S + diag(pe).
-    The yardstick waits on the host at W >= 2, so it cannot be queued: it
-    is timed by its device busy time (``busy_ms``, gaps left out) at every
+    """Hold block_chol against its plain version (1e-5 relative, float32)
+    and against ``torch.linalg.cholesky_ex`` at every (W, Np) shape of
+    every main-path matrix (``shapes``: {matrix: {(W, Np): launches a
+    factor}}, the bench's lap3d_64 included).  At the shapes of one
+    lap3d_44 factor (TIMED_MATRIX) also time it on the device's clock,
+    queued behind a spin (``kernel_ms``: the gaps between launches
+    included), beside its plain version, its bound and the yardstick
+    ``torch.linalg.cholesky_ex`` on the precomputed S + diag(pe).  The
+    yardstick waits on the host at W >= 2, so it cannot be queued: it is
+    timed by its device busy time (``busy_ms``, gaps left out) at every
     shape, and so is the kernel, beside its queued time."""
     import torch
     from suitesparse_tpu_torch.cholesky.kernels import (block_chol,
@@ -991,7 +1087,9 @@ def kernel_line(shapes, launches, dev_kind):
     tot = dict.fromkeys(keys, 0.0)
     max_abs = 0.0
     w1 = None
-    for (W, Np), cnt in sorted(shapes.items()):
+    timed = shapes[TIMED_MATRIX]
+    every = sorted(set().union(*shapes.values()))
+    for W, Np in every:
         S, pe = spd_batch(rng, W, Np, torch.float32, npad=Np // 8)
         A = S + torch.diag_embed(pe)
         K = block_chol(S, pe)
@@ -1002,6 +1100,9 @@ def kernel_line(shapes, launches, dev_kind):
         check(int(info.abs().max()) == 0 and rel_err(L.mT, K) <= 1e-5,
               f"cholesky_ex vs block_chol at W={W} Np={Np}")
         max_abs = max(max_abs, float((K - P).abs().max()))
+        cnt = timed.get((W, Np))
+        if cnt is None:
+            continue
         ms = kernel_ms(lambda: block_chol(S, pe))
         busy = busy_ms(lambda: block_chol(S, pe))
         lib = busy_ms(lambda: torch.linalg.cholesky_ex(A))
@@ -1023,7 +1124,10 @@ def kernel_line(shapes, launches, dev_kind):
                 f"{lib * 1e3:.2f} us busy")
         for k, v in zip(keys, (ms, busy, plain, bound, lib, t_bytes, t_ops)):
             tot[k] += cnt * v
-    log(f"[kernel] block_chol per lap3d_44 factor: {tot['ms']:.4f} ms "
+    log(f"[kernel] block_chol held against its plain version at "
+        f"{len(every)} shapes of {', '.join(shapes)}: max abs err "
+        f"{max_abs:.3e}")
+    log(f"[kernel] block_chol per {TIMED_MATRIX} factor: {tot['ms']:.4f} ms "
         f"queued, {tot['busy_ms']:.4f} ms busy (torch.linalg.cholesky_ex "
         f"{tot['library_ms']:.4f} ms busy, bound {tot['bound_ms']:.4f} ms) "
         f"on {dev_kind}")
@@ -1040,7 +1144,9 @@ def kernel_line(shapes, launches, dev_kind):
                 ms_w1_np128=w1 and w1["ms"],
                 busy_ms_w1_np128=w1 and w1["busy_ms"],
                 library_ms_w1_np128=w1 and w1["library_ms"],
-                timed_as=f"one lap3d_44 factor's launches, shape by shape: "
+                compared_at={m: len(sh) for m, sh in shapes.items()},
+                timed_as=f"one {TIMED_MATRIX} factor's launches, shape by "
+                         f"shape: "
                          f"ms with {QUEUED_REPS} launches queued behind a "
                          f"spin kernel (gaps between launches included); "
                          f"busy_ms and library_ms (torch.linalg.cholesky_ex "
@@ -2681,16 +2787,20 @@ def main() -> int:
     from suitesparse_tpu_torch.cholesky.kernels import block_chol
     block_chol.launches = 0            # the main path's count starts here
     rows = {}
-    shapes = None
+    shapes = {}                        # {matrix: {(W, Np): launches}}
     for name in MATRICES:
-        rows[name], sh = run_matrix(name, REFACTOR_REPS)
-        shapes = shapes or sh
+        rows[name], shapes[name] = run_matrix(name, REFACTOR_REPS)
         free_device_memory()           # this plan's programs and pools
-    launches = block_chol.launches
-    check(launches > 0, "main path never launched block_chol")
-    log(f"[main] block_chol launches on the main path: {launches}")
-    kline = kernel_line(shapes, launches, kind)
     log(f"[time] cholesky phases done at {time.perf_counter() - t_start:.1f} s")
+    bench = run_bench()                # its factors count on the main path
+    launches = block_chol.launches + bench["block_chol_launches"]
+    check(launches > 0, "main path never launched block_chol")
+    log(f"[main] block_chol launches on the main path: {launches} "
+        f"({bench['block_chol_launches']} in the {BENCH_MATRIX} bench)")
+    log(f"[time] bench phase done at {time.perf_counter() - t_start:.1f} s "
+        f"(bench_extra {bench['extra_s']:.1f} s)")
+    shapes[BENCH_MATRIX] = bench["block_chol_shapes"]
+    kline = kernel_line(shapes, launches, kind)
     run_ablate()
     free_device_memory()
     run_probes()

@@ -54,12 +54,29 @@ from .super_numeric import (NumericPlan, _device_amaps, _index, _panels,
                             _seg_lengths, assemble, cholesky_or_nan,
                             scatter_add_maps, segment_sum, syrk)
 
-__all__ = ["PFPlan", "build_pf_plan", "pf_numeric", "pf_program"]
+__all__ = ["PFPlan", "block_chol_shapes", "build_pf_plan", "pf_numeric",
+           "pf_program"]
 
 # Largest panel column class factored by panel_factor (block_chol on
 # 128-wide slabs); wider classes take torch.linalg's batched Cholesky and
 # triangular solve, as the reference's SSTPU_POTRF_MAXNP default does.
 _POTRF_MAXNP = 8192
+
+
+def block_chol_shapes(pfp) -> dict:
+    """{(W, Np): launches} of block_chol in one factor of the plan ``pfp``
+    (the default ``trsm_inv`` route): each factor class at Np <=
+    _POTRF_MAXNP launches once per 128-wide slab (fewer columns: once)."""
+    nf = len(pfp.fmeta)
+    shapes = {}
+    for cid in pfp.instr_cls.tolist():
+        if cid >= nf:
+            continue
+        Np, Mb, W = pfp.fmeta[cid][:3]
+        if Np <= _POTRF_MAXNP:
+            bb = min(Np, 128)
+            shapes[(W, bb)] = shapes.get((W, bb), 0) + Np // bb
+    return shapes
 
 
 _NO_RANGE = nullcontext()

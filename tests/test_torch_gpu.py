@@ -4,6 +4,8 @@ a machine with a card and no JAX it runs as
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q -m gpu
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -625,7 +627,7 @@ def test_block_chol_launches_per_replay_and_no_aliasing(tmp_path):
     leaves the first factor's buffer as it was; a replayed factor saves
     and loads like any other."""
     _need_card()
-    from chip_smoke import factor_shapes
+    from suitesparse_tpu_torch.cholesky.pf import block_chol_shapes
     from suitesparse_tpu_torch.utils import (load_super_factor,
                                              save_super_factor)
     A = laplacian_3d(12)
@@ -636,7 +638,7 @@ def test_block_chol_launches_per_replay_and_no_aliasing(tmp_path):
     ss = super_symbolic(A, sym, cm)
     before = kernels.block_chol.launches
     f1 = factorize_super(A, sym, ss, common=cm)
-    want = sum(factor_shapes(f1.plan.pf_plan(cm)).values())
+    want = sum(block_chol_shapes(f1.plan.pf_plan(cm)).values())
     assert want > 0 and kernels.block_chol.launches - before == want
     assert cm.info["factor_capture_time"] > 0
     assert cm.info["factor_graph_nodes"] > want
@@ -841,3 +843,55 @@ def test_probe_precision_leaves_tf32_off():
     assert not torch.backends.cuda.matmul.allow_tf32
     assert torch.get_float32_matmul_precision() == "highest"
     programs._check_precision()
+
+
+@pytest.mark.gpu
+def test_bench_matrix_on_the_card(tmp_path):
+    """The bench protocol at lap3d_12 on the card in float32: the row's
+    keys, the residuals, two refactors bit for bit, block_chol launched
+    per factor as often as the plan says, every rate under 105% of its
+    H100 peak (bench_matrix raises otherwise) and held here too, and the
+    device's factor against the same protocol's float64 CPU factor."""
+    _need_card()
+    from suitesparse_tpu_torch import bench
+    from suitesparse_tpu_torch.tools.microbench import PEAK_MARGIN, PEAKS
+    row, Lx = bench.bench_matrix("lap3d_12", 2, 1.0,
+                                 splu_cache=tmp_path / "splu.json",
+                                 return_factor=True)
+    cpu, Lx64 = bench.bench_matrix("lap3d_12", 1, 1.0, device="cpu",
+                                   return_factor=True)
+    assert (row["device"], row["dtype"]) == ("cuda", "float32")
+    assert all(row[k] is not None for k in (
+        "solve32_gflops", "bf16_gflops", "t_base", "graph_nodes",
+        "graph_pool_gib", "peak_mem_gib"))
+    assert (row["n"], row["fl"], row["lnz"], row["instr"]) == (
+        cpu["n"], cpu["fl"], cpu["lnz"], cpu["instr"])
+    assert row["residual_device"] < 1e-4 and row["residual"] <= 1e-11
+    assert row["bit_identical"] and row["graph_nodes"] > 0
+    assert row["block_chol_per_factor"] == row["block_chol_plan"] > 0
+    assert row["block_chol_timed_launches"] == (
+        row["block_chol_plan"] * row["block_chol_timed_calls"])
+    for key, peak in (("gflops", "float32"), ("solve_gflops", "float32"),
+                      ("solve32_gflops", "float32"),
+                      ("bf16_gflops", "bfloat16")):
+        assert 0 < row[key] * 1e9 <= PEAK_MARGIN * PEAKS[peak]
+    rel = np.abs(Lx - Lx64).max() / np.abs(Lx64).max()
+    assert rel < 1e-4
+
+
+@pytest.mark.gpu
+def test_bench_gemm_roofline_is_held_under_the_peak(monkeypatch):
+    """The measured float32 (TF32 off) and bfloat16 roofline on the card
+    lies under 105% of the H100 peaks; a forged clock that makes it faster
+    than the peak raises."""
+    _need_card()
+    from suitesparse_tpu_torch import bench
+    dev = torch.device("cuda")
+    f32 = bench.measure_gemm_roofline(torch.float32, dev, 4096)
+    bf16 = bench.measure_gemm_roofline(torch.bfloat16, dev, 4096)
+    assert 0 < f32 < bf16
+    assert not torch.backends.cuda.matmul.allow_tf32
+    clock = itertools.count(0.0, 1e-9)     # every reading 1 ns later
+    monkeypatch.setattr(bench.time, "perf_counter", lambda: next(clock))
+    with pytest.raises(RuntimeError, match="peak"):
+        bench.measure_gemm_roofline(torch.float32, dev, 1024)

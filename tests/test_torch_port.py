@@ -20,6 +20,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ISOLATION = """
 import sys
 import suitesparse_tpu_torch
+import suitesparse_tpu_torch.bench
+import suitesparse_tpu_torch.bench_extra
 import suitesparse_tpu_torch.cholesky
 import suitesparse_tpu_torch.cholesky.api
 import suitesparse_tpu_torch.cholesky.extra
@@ -30,6 +32,12 @@ import suitesparse_tpu_torch.cholesky.simplicial
 import suitesparse_tpu_torch.cholesky.super_numeric
 import suitesparse_tpu_torch.cholesky.wave
 import suitesparse_tpu_torch.core.check
+import suitesparse_tpu_torch.demos
+import suitesparse_tpu_torch.demos.cholmod_demo
+import suitesparse_tpu_torch.demos.cs_demo
+import suitesparse_tpu_torch.demos.graphblas_demo
+import suitesparse_tpu_torch.demos.klu_demo
+import suitesparse_tpu_torch.demos.umfpack_demo
 import suitesparse_tpu_torch.graph.btf
 import suitesparse_tpu_torch.lu
 import suitesparse_tpu_torch.lu.klu
@@ -281,6 +289,26 @@ def test_qr_and_front_door_entry_points_raise_without_a_card(monkeypatch):
     assert np.abs(spd.to_scipy() @ F.solve(np.ones(spd.ncol)) - 1).max() \
         < 1e-10
     assert num.Rbuf.dtype == torch.float64
+
+
+def test_bench_entry_points_raise_without_a_card(monkeypatch):
+    """bench_matrix, the four bench_extra functions and both entry
+    points' main() run on the card unless "cpu" is asked for, and raise
+    without one before any work."""
+    from suitesparse_tpu_torch import bench, bench_extra
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: bench.bench_matrix("lap3d_6", 1, 1.0),
+        lambda: bench_extra.bench_klu("circuit_100", 1),
+        lambda: bench_extra.bench_umfpack("randunsym_200", 1),
+        lambda: bench_extra.bench_spqr("randunsym_200", 1),
+        lambda: bench_extra.bench_graphblas("lap3d_5", "lap3d_5", 1),
+        lambda: bench.main(["--matrix", "lap3d_6", "--no-baseline"]),
+        lambda: bench_extra.main(["klu", "--klu", "circuit_100"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 def test_cpu_defaults_to_float64_and_dtype_is_honoured():
