@@ -31,7 +31,8 @@ as the reference's ``jax.named_scope`` (``Assemble``, ``Fslice8x32``,
 ``Qeinsum32g8``, ...), so that ``tools/profile_attrib.py`` can attribute
 the device time of the eager body by phase.  A range is host code only: a
 captured graph holds none of it.  It is entered only while a profiler
-records (``_scope``); otherwise it costs one flag test.
+records (``_scope``, ``utils/trace.scope``); otherwise it costs one flag
+test.
 
 Update-slot convention: a slot holds the accumulated incoming update in
 LOWER-triangle-canonical form until its supernode factors (the factor
@@ -40,7 +41,6 @@ step symmetrizes), then the FULL symmetric outgoing update U = B Bᵀ+acc.
 from __future__ import annotations
 
 import dataclasses
-from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -49,6 +49,8 @@ from torch.profiler import record_function
 from ..core.sparse import INDEX
 from ..utils.device import resolve_device, torch_dtype
 from ..utils.programs import DeviceProgram, cached_program
+from ..utils.trace import scope as _scope
+from ..utils.trace import spanned
 from .kernels import block_chol, panel_factor
 from .super_numeric import (NumericPlan, _device_amaps, _index, _panels,
                             _seg_lengths, assemble, cholesky_or_nan,
@@ -77,18 +79,6 @@ def block_chol_shapes(pfp) -> dict:
             bb = min(Np, 128)
             shapes[(W, bb)] = shapes.get((W, bb), 0) + Np // bb
     return shapes
-
-
-_NO_RANGE = nullcontext()
-
-
-def _scope(name: str):
-    """The profiler range ``name`` (``record_function``) while a profiler
-    records, else a shared no-op: an unrecorded ``record_function`` still
-    costs ~10 us of host time, and a lap3d_44 refactor enters 1,300."""
-    if torch.autograd._profiler_enabled():
-        return record_function(name)
-    return _NO_RANGE
 
 
 def _pow2ceil(x: int) -> int:
@@ -244,6 +234,7 @@ def _dest_1hop(ss, rows_of, where, ub_slot_of, b, total: int, trash: int):
     return dest
 
 
+@spanned("plan.pf_plan")
 def build_pf_plan(plan: NumericPlan, common=None) -> PFPlan:
     """Host planning, once per pattern: update-buffer layout, per-bucket
     scatter/project mode decision, child->parent projection maps grouped

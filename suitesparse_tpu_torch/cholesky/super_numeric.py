@@ -25,7 +25,6 @@ per-bucket arithmetic over uniform waves (wave.wave_numeric).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -38,6 +37,7 @@ from ..utils.device import (default_dtype, numpy_dtype, resolve_device,
                             torch_dtype)
 from ..utils.programs import (Binding, DeviceProgram, cached_program,
                               program_device)
+from ..utils.trace import moved, nbytes, span, spanned
 from .supernodal import SuperSymbolic
 from .symbolic import Symbolic
 
@@ -226,6 +226,7 @@ def _bucket_dest(ss: SuperSymbolic, rows_of, sids, Np, Mb,
     return dest
 
 
+@spanned("plan.build_plan")
 def build_plan(ss: SuperSymbolic) -> NumericPlan:
     n, total = ss.n, ss.total
     trash = total
@@ -549,6 +550,7 @@ def _first_nan_super(ss: SuperSymbolic, Lx: torch.Tensor) -> int:
     return ss.n
 
 
+@spanned("super.factorize")
 def factorize_super(A: SparseCSC, sym: Symbolic, ss: SuperSymbolic,
                     plan: Optional[NumericPlan] = None,
                     common: Optional[Common] = None,
@@ -556,7 +558,14 @@ def factorize_super(A: SparseCSC, sym: Symbolic, ss: SuperSymbolic,
     """Numeric supernodal LL' of PAP' (values change, pattern fixed).
 
     device: "cuda" by default (raises when no card is present) or "cpu".
-    dtype: float64 on the CPU and float32 on the card unless given."""
+    dtype: float64 on the CPU and float32 on the card unless given.
+
+    Spans (utils/trace): ``super.factorize`` around the call, and inside it
+    ``.assemble`` (the values of tril(PAP') on the host), ``.upload``,
+    ``.prepare`` (first call: the program's warm-up and capture),
+    ``.program`` (copy-in, replay, clone of the result), ``.wait`` (for the
+    device) and ``.nan_scan``.  cm.info: ``factor_time`` is the program's
+    call and the wait, ``factor_assemble_time`` the host assembly."""
     cm = common or default_common()
     cm.checkpoint("super_numeric")
     if np.iscomplexobj(A.data) or (dtype is not None
@@ -571,31 +580,36 @@ def factorize_super(A: SparseCSC, sym: Symbolic, ss: SuperSymbolic,
     dtype = numpy_dtype(default_dtype(dev) if dtype is None else dtype)
     plan = plan or build_plan(ss)
     prog = factor_program(plan, cm, dtype, dev)
-    t0 = time.perf_counter()
-    vals = torch.as_tensor(_assemble_values(A, sym, ss, dtype), device=dev)
-    t_vals = time.perf_counter() - t0
+    with span("super.factorize.assemble") as assembly:
+        host = _assemble_values(A, sym, ss, dtype)
+    with span("super.factorize.upload"):
+        vals = torch.as_tensor(host, device=dev)
+        moved("h2d", host.nbytes)
     if not prog.prepared:
         # the warm-up and the capture stand apart from the refactorization,
         # as a first jit call's compile time does
-        prog.prepare(vals)
+        with span("super.factorize.prepare"):
+            prog.prepare(vals)
         cm.info.update({"factor_warmup_time": prog.warmup_s,
                         "factor_capture_time": prog.capture_s,
                         "factor_graph_nodes": prog.nodes})
-    t0 = time.perf_counter()
-    Lx = prog(vals)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t = t_vals + time.perf_counter() - t0
+    with span("super.factorize.program") as run:
+        Lx = prog(vals)
+    with span("super.factorize.wait") as wait:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    with span("super.factorize.nan_scan"):
+        failed = bool(torch.isnan(Lx).any())
 
     minor = plan.n
-    if bool(torch.isnan(Lx).any()):
+    if failed:
         cm.status = Status.NOT_POSDEF
         minor = _first_nan_super(ss, Lx)
     else:
         cm.status = Status.OK
-    cm.info.update({"factor_time": t, "minor": minor,
-                    "factor_gflops": (sym.flops if sym else 0.0)
-                    / max(t, 1e-12) / 1e9})
+    cm.info.update({"factor_time": run.seconds + wait.seconds,
+                    "factor_assemble_time": assembly.seconds,
+                    "minor": minor})
     return SuperFactor(plan=plan, Lx=Lx, perm=sym.perm, minor=minor,
                        dtype=dtype)
 
@@ -768,17 +782,22 @@ def bind_solve_factor(f: SuperFactor,
     R = _solve_factor(plan, wave, dt, dev, common)
     if R.holds(f):
         return R
-    R.bound.clear()
-    R.Lx.copy_(f.Lx[:plan.total])
-    if wave:
-        if f._dinv is None:
-            f._dinv = R.dinv()
-        R.Dv.copy_(f._dinv)
-    if R.perm_host is None or not np.array_equal(R.perm_host, f.perm):
-        R.perm.copy_(_index(f.perm, dev))
-        R.invperm.copy_(_index(np.argsort(f.perm), dev))
-        R.perm_host = np.array(f.perm)
-    R.bound.set(f, f.Lx)
+    with span("super.solve.bind"):
+        R.bound.clear()
+        R.Lx.copy_(f.Lx[:plan.total])
+        moved("d2d", nbytes(R.Lx))
+        if wave:
+            if f._dinv is None:
+                f._dinv = R.dinv()
+            R.Dv.copy_(f._dinv)
+            moved("d2d", nbytes(R.Dv))
+        if R.perm_host is None or not np.array_equal(R.perm_host, f.perm):
+            R.perm.copy_(_index(f.perm, dev))
+            R.invperm.copy_(_index(np.argsort(f.perm), dev))
+            R.perm_host = np.array(f.perm)
+            moved("h2d", 2 * nbytes(R.perm))
+            moved("d2d", 2 * nbytes(R.perm))
+        R.bound.set(f, f.Lx)
     return R
 
 
@@ -806,13 +825,19 @@ def solve_program(plan: NumericPlan, system: str, k: int, dtype, device,
                                         dev), make, dev)
 
 
+@spanned("super.solve")
 def solve_super(f: SuperFactor, b: np.ndarray, system: str = "A",
                 common: Optional[Common] = None) -> np.ndarray:
     """cholmod_solve on a supernodal factor. Systems: A, LLt, L, Lt, P, Pt.
 
     Runs on the factor's device through the plan's ``solve_program``
     after ``bind_solve_factor`` (P and Pt on the host); b and the result
-    are host arrays."""
+    are host arrays.
+
+    Spans (utils/trace): ``super.solve`` around the call, and inside it
+    ``.bind`` (where ``bind_solve_factor`` copies a factor in), ``.upload``
+    (b to the device in the factor's dtype), ``.program`` (copy-in,
+    replay, clone), ``.wait`` (for the device) and ``.download``."""
     n = f.plan.n
     b = np.asarray(b)
     one_d = b.ndim == 1
@@ -825,10 +850,20 @@ def solve_super(f: SuperFactor, b: np.ndarray, system: str = "A",
         out[perm] = bk
     elif system in _SOLVE_SYSTEMS:
         bind_solve_factor(f, common)
+        dev = f.Lx.device
         prog = solve_program(f.plan, _SOLVE_SYSTEMS[system], bk.shape[1],
-                             f.Lx.dtype, f.Lx.device, common)
-        x = prog(torch.as_tensor(bk, device=f.Lx.device).to(f.Lx.dtype))
-        out = x.cpu().numpy()
+                             f.Lx.dtype, dev, common)
+        with span("super.solve.upload"):
+            bt = torch.as_tensor(bk, device=dev).to(f.Lx.dtype)
+            moved("h2d", bk.nbytes)
+        with span("super.solve.program"):
+            x = prog(bt)
+        with span("super.solve.wait"):
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+        with span("super.solve.download"):
+            out = x.cpu().numpy()
+            moved("d2h", out.nbytes)
     else:
         raise ValueError(f"unknown system {system!r}")
     return out.reshape(-1) if one_d else out

@@ -27,6 +27,7 @@ import numpy as np
 
 from ..core.common import Common, default_common
 from ..core.sparse import INDEX, SparseCSC
+from ..utils.trace import spanned
 from .symbolic import Symbolic, analyze, _force_upper
 
 
@@ -322,6 +323,7 @@ def _amalgamate(n: int, nsuper: int, super_: np.ndarray, parent: np.ndarray,
     return np.array(starts + [n], dtype=INDEX)
 
 
+@spanned("plan.super_symbolic")
 def super_symbolic(A: SparseCSC, sym: Symbolic,
                    common: Optional[Common] = None) -> SuperSymbolic:
     """Build the supernode partition and all numeric-phase maps.

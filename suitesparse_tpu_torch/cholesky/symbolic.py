@@ -23,6 +23,7 @@ from ..core.sparse import INDEX, SparseCSC, SYM_UPPER, invert_permutation
 from ..core.status import SparseError, Status
 from ..graph import chol_symbolic_flops, col_counts, etree, postorder
 from ..ordering import amd
+from ..utils.trace import span
 
 
 def _force_upper(A: SparseCSC) -> SparseCSC:
@@ -71,11 +72,20 @@ def analyze_ordering(A_upper: SparseCSC, perm: np.ndarray) -> tuple:
 
 def analyze(A: SparseCSC, common: Optional[Common] = None,
             perm: Optional[np.ndarray] = None) -> Symbolic:
-    """cholmod_analyze: choose an ordering and build the symbolic factor."""
+    """cholmod_analyze: choose an ordering and build the symbolic factor.
+    The call is the span ``cholesky.analyze`` (utils/trace); cm.info's
+    ``analyze_time`` and ``time_analyze`` hold its seconds."""
     cm = common or default_common()
+    with span("cholesky.analyze") as sp:
+        sym = _analyze(A, cm, perm)
+    cm.info["analyze_time"] = sp.seconds
+    cm.info["time_analyze"] = cm.info.get("time_analyze", 0.0) + sp.seconds
+    return sym
+
+
+def _analyze(A: SparseCSC, cm: Common, perm) -> Symbolic:
     cm.checkpoint("analyze")
     opts = cm.cholesky
-    cm.tic("analyze")
     from ..core.sparse import sym_upper_view
     U = sym_upper_view(A)
     n = U.ncol
@@ -139,10 +149,9 @@ def analyze(A: SparseCSC, common: Optional[Common] = None,
     sym = Symbolic(n=n, perm=p, parent=parent, post=post, colcount=cc,
                    lnz=lnz, flops=fl, anz=anz, method=method,
                    is_super=is_super)
-    t = cm.toc("analyze")
     cm.info.update({"ordering": method, "lnz": lnz, "anz": anz,
                     "fl": fl, "fl_per_lnz": fl / max(lnz, 1),
                     "lnz_per_anz": lnz / max(anz, 1),
-                    "supernodal": is_super, "analyze_time": t})
+                    "supernodal": is_super})
     cm.status = Status.OK
     return sym

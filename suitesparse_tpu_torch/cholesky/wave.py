@@ -24,6 +24,7 @@ import torch
 from ..core.sparse import INDEX
 from ..utils.device import resolve_device, torch_dtype
 from ..utils.programs import DeviceProgram, cached_program
+from ..utils.trace import spanned
 from .super_numeric import (NumericPlan, _device_amaps, _index, _panels,
                             _seg_lengths, assemble, cholesky_or_nan,
                             scatter_add_maps, segment_sum,
@@ -135,6 +136,7 @@ class WavePlan:
         return list(zip(self.instr_cls.tolist(), self.instr_pos.tolist()))
 
 
+@spanned("plan.wave_plan")
 def build_wave_plan(plan: NumericPlan, solve_only: bool = False) -> WavePlan:
     """Split the per-level buckets into uniform waves and stack operands
     per shape class.  Pure host preprocessing (runs once per pattern).

@@ -9,9 +9,9 @@ instead of Info[90] arrays (SURVEY.md §5 "Config / flag system").
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Callable, Optional
 
+from ..utils.trace import Span
 from .status import Status
 
 
@@ -213,11 +213,18 @@ class Common:
         self._checkpoints = 0
 
     # -- timers (SuiteSparse_tic/toc analog, SuiteSparse_config.h:139-154) --
+    # on the port's spans (utils/trace): tic opens the span common.<key>,
+    # toc closes it and adds its seconds to info["time_<key>"]
     def tic(self, key: str) -> None:
-        self.info[f"_tic_{key}"] = time.perf_counter()
+        sp = self.info[f"_tic_{key}"] = Span(f"common.{key}", nest=False)
+        sp.__enter__()
 
     def toc(self, key: str) -> float:
-        t = time.perf_counter() - self.info.pop(f"_tic_{key}", time.perf_counter())
+        sp = self.info.pop(f"_tic_{key}", None)
+        t = 0.0
+        if sp is not None:
+            sp.__exit__(None, None, None)
+            t = sp.seconds
         self.info[f"time_{key}"] = self.info.get(f"time_{key}", 0.0) + t
         return t
 

@@ -23,11 +23,16 @@ the trace's ``correlation`` id, and the call is placed inside the
 on torch operators: ``block_chol``, launched through ctypes
 (``utils.cuda_build.launch``), lands in ``Fpotrf`` all the same.
 
+``idle_by_range`` puts a trace's idle device time down to the innermost
+host range open over it.  In a trace of the front end those ranges are
+the program's spans (``utils/trace``): unlike the scopes, they exist
+around a replay too.
+
 Printed, as the reference prints them: the coarse phases (the scope's
 prefix) in ms and %, and with ``detail`` the top scopes and the top
 unattributed kernels; beyond the reference, a cross-table of phase by
-kernel group (``KERNEL_GROUPS``).  ``attribute`` and ``summarize`` are
-pure functions of a parsed Chrome trace.
+kernel group (``KERNEL_GROUPS``).  ``attribute`` and ``summarize`` (and
+``idle_by_range``) are pure functions of a parsed Chrome trace.
 
 On the CPU (``device="cpu"``) no device time exists: the run records the
 scopes' ranges only (their labels and counts).
@@ -49,8 +54,8 @@ import torch
 from ..utils.device import resolve_device
 
 __all__ = ["KERNEL_GROUPS", "SCOPE_RE", "attribute", "attribute_pf",
-           "busy_us", "kernel_group", "pf_setup", "phase_of", "scope_of",
-           "summarize", "trace_events"]
+           "busy_us", "idle_by_range", "kernel_group", "pf_setup",
+           "phase_of", "scope_of", "summarize", "trace_events"]
 
 # the reference's scope pattern (tools/profile_attrib.py:57-59), applied to
 # "/" + a range's name
@@ -58,6 +63,7 @@ SCOPE_RE = re.compile(
     r"/((?:F(?:slice|potrf|syrk|write|scat)|Q(?:gather|place|einsum|scat)|"
     r"Assemble)[\w]*)")
 UNATTRIBUTED = "(unattributed)"
+NO_RANGE = "(no range)"
 # kernel-name fragments of each device-time group, first match wins
 KERNEL_GROUPS = (("block_chol", ("block_chol",)),
                  ("getrf", ("getrf", "getf2", "laswp", "lu_unpack",
@@ -196,6 +202,80 @@ def summarize(ops) -> dict:
         cross_ms={ph: ms(c) for ph, c in cross.items()},
         cross_count={ph: dict(c) for ph, c in count.items()},
         unattributed_ms=ms(unattributed), no_launch_record=unlaunched)
+
+
+def idle_by_range(events, window=None) -> dict:
+    """Idle device time of a trace put down to the innermost host range
+    open over it.
+
+    The window is the first ``user_annotation`` range named ``window``
+    (else the extent of the device operations); the host ranges are those
+    of its thread (else of the thread holding the most ranges).  Idle time
+    is the window less the union of every device operation (kernel, copy,
+    set); each idle piece goes to the innermost range that encloses it at
+    that time, NO_RANGE where none does.  Returns, in microseconds,
+    {"window_us", "busy_us", "idle_us": {range name: idle},
+    "ranges": {range name: ranges starting in the window}}."""
+    ranges = collections.defaultdict(list)
+    ops = []
+    for e in events:
+        cat = e.get("cat")
+        if "dur" not in e:
+            continue
+        ts, te = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+        if cat == "user_annotation":
+            ranges[e["tid"]].append((ts, te, e["name"]))
+        elif cat in DEVICE_CATS:
+            ops.append((ts, te))
+    found = [(tid, r) for tid, rs in ranges.items() for r in rs
+             if window is not None and r[2] == window]
+    if window is not None and not found:
+        raise ValueError(f"the trace holds no range {window!r}")
+    if found:
+        tid, (w0, w1, _) = min(found, key=lambda f: f[1][0])
+    else:
+        if not ops:
+            raise ValueError("the trace holds no device operation")
+        tid = max(ranges, key=lambda t: len(ranges[t])) if ranges else None
+        w0, w1 = min(s for s, _ in ops), max(e for _, e in ops)
+    busy = []
+    for s, e in sorted(ops):
+        s, e = max(s, w0), min(e, w1)
+        if s >= e:
+            continue
+        if busy and s <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], e)
+        else:
+            busy.append([s, e])
+    gaps, t = [], w0
+    for s, e in busy:
+        if s > t:
+            gaps.append((t, s))
+        t = e
+    if t < w1:
+        gaps.append((t, w1))
+    # ranges nest on one thread: sweep the gaps' pieces in time order with
+    # a stack of the open ranges (outer first at equal starts)
+    rs = sorted((r for r in ranges.get(tid, ()) if r[1] > w0 and r[0] < w1),
+                key=lambda r: (r[0], -r[1]))
+    cuts = sorted({w0, w1, *(t for r in rs for t in r[:2] if w0 < t < w1),
+                   *(t for g in gaps for t in g)})
+    idle = collections.Counter()
+    stack, i, g = [], 0, 0
+    for a, b in zip(cuts, cuts[1:]):
+        while i < len(rs) and rs[i][0] <= a:
+            stack.append(rs[i])
+            i += 1
+        stack = [r for r in stack if r[1] > a]
+        while g < len(gaps) and gaps[g][1] <= a:
+            g += 1
+        if g < len(gaps) and gaps[g][0] <= a:
+            idle[stack[-1][2] if stack else NO_RANGE] += b - a
+    return dict(window_us=w1 - w0,
+                busy_us=sum(e - s for s, e in busy),
+                idle_us=dict(idle.most_common()),
+                ranges=dict(collections.Counter(
+                    r[2] for r in rs if w0 <= r[0] < w1)))
 
 
 def trace_events(prof, path=None) -> list:

@@ -30,6 +30,14 @@ no Python call, so a program records how many launches of each counted
 wrapper its capture recorded, adds that many on every replay, and leaves
 the counts as they were across the warm-up and the capture.
 
+Each program times itself in spans named by it (``utils/trace``):
+``program.<name>.body`` (``cached_program`` making the body: its device
+index maps), ``.warmup`` and ``.capture`` on the first call on the card,
+then per call ``.copy_in`` (the inputs into the static buffers), ``.replay``
+(the graph's launch, on the host) or ``.eager`` (the body, where nothing is
+captured) and ``.clone`` (the result); the copies count their bytes as
+``d2d``.
+
 A body may also update tensors it closes over in place (a distributed
 rank's local buffer, between two collectives).  The warm-up runs such a
 body once more than the caller asked, so the program is told which tensors
@@ -42,10 +50,11 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
-import time
 import weakref
 
 import torch
+
+from .trace import moved, nbytes, span
 
 __all__ = ["Binding", "DeviceProgram", "cached_program", "program_device"]
 
@@ -127,7 +136,8 @@ class DeviceProgram:
               warm-up, so that the first call updates them once.
 
     After the first call on the card: ``warmup_s`` and ``capture_s`` (host
-    seconds of the warm-up and of the capture with its instantiation),
+    seconds of the warm-up and of the capture with its instantiation: the
+    program's spans ``program.<name>.warmup`` and ``.capture``),
     ``nodes`` (the graph's node count) and ``graph``."""
 
     def __init__(self, name: str, key: tuple, body, device,
@@ -145,6 +155,9 @@ class DeviceProgram:
         self.per_replay = ()        # launches per counter a replay makes
         self.warmup_s = self.capture_s = 0.0
         self.nodes = 0
+        self.spans = {k: f"program.{name}.{k}" for k in
+                      ("warmup", "capture", "copy_in", "replay", "eager",
+                       "clone")}
 
     @property
     def prepared(self) -> bool:
@@ -165,6 +178,7 @@ class DeviceProgram:
                 raise ValueError(f"{self.name}: input on {t.device}, the "
                                  f"program runs on {self.device}")
         static = tuple(t.detach().clone() for t in inputs)
+        moved("d2d", nbytes(static))
         if self.device.type == "cuda":
             try:
                 self._capture(static)
@@ -179,34 +193,34 @@ class DeviceProgram:
         dev = self.device
         before = [c.launches for c in self.counters]
         try:
-            t0 = time.perf_counter()
-            saved = [t.clone() for t in self.mutates]
-            cur = torch.cuda.current_stream(dev)
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):
-                self.eager(*static)
-            cur.wait_stream(side)
-            for t, s in zip(self.mutates, saved):
-                t.copy_(s)
-            del saved
-            torch.cuda.synchronize(dev)
-            t1 = time.perf_counter()
-            for c, n in zip(self.counters, before):
-                c.launches = n
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(graph):
-                out = self.eager(*static)
-            self.per_replay = tuple(c.launches - n for c, n
-                                    in zip(self.counters, before))
+            with span(self.spans["warmup"]) as warm:
+                saved = [t.clone() for t in self.mutates]
+                cur = torch.cuda.current_stream(dev)
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(cur)
+                with torch.cuda.stream(side):
+                    self.eager(*static)
+                cur.wait_stream(side)
+                for t, s in zip(self.mutates, saved):
+                    t.copy_(s)
+                del saved
+                torch.cuda.synchronize(dev)
+            with span(self.spans["capture"]) as cap:
+                for c, n in zip(self.counters, before):
+                    c.launches = n
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                with torch.cuda.graph(graph):
+                    out = self.eager(*static)
+                self.per_replay = tuple(c.launches - n for c, n
+                                        in zip(self.counters, before))
+                self.nodes = _graph_nodes(graph)
+                graph.instantiate()
+                torch.cuda.synchronize(dev)
         finally:
             for c, n in zip(self.counters, before):
                 c.launches = n
-        self.nodes = _graph_nodes(graph)
-        graph.instantiate()
-        torch.cuda.synchronize(dev)
         self.graph, self.out = graph, out
-        self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
+        self.warmup_s, self.capture_s = warm.seconds, cap.seconds
 
     def __call__(self, *inputs):
         """The body's result on ``inputs``, cloned: a replay on the card,
@@ -217,34 +231,45 @@ class DeviceProgram:
             if len(inputs) != len(self.static):
                 raise ValueError(f"{self.name}: {len(inputs)} inputs, the "
                                  f"program takes {len(self.static)}")
-            for s, t in zip(self.static, inputs):
-                if s.shape != t.shape or s.dtype != t.dtype:
-                    raise ValueError(
-                        f"{self.name} {self.key}: input {tuple(t.shape)} "
-                        f"{t.dtype}, the program's buffer {tuple(s.shape)} "
-                        f"{s.dtype}")
-                s.copy_(t)
+            with span(self.spans["copy_in"]):
+                for s, t in zip(self.static, inputs):
+                    if s.shape != t.shape or s.dtype != t.dtype:
+                        raise ValueError(
+                            f"{self.name} {self.key}: input "
+                            f"{tuple(t.shape)} {t.dtype}, the program's "
+                            f"buffer {tuple(s.shape)} {s.dtype}")
+                    s.copy_(t)
+                moved("d2d", nbytes(inputs))
         if self.graph is None:
-            return _tree_map(torch.clone, self.eager(*self.static))
-        try:
-            self.graph.replay()
-        except Exception as exc:
-            raise RuntimeError(f"device program {self.name} {self.key}: "
-                               f"replay failed: {exc}") from exc
-        for c, n in zip(self.counters, self.per_replay):
-            c.launches += n
-        return _tree_map(torch.clone, self.out)
+            with span(self.spans["eager"]):
+                out = self.eager(*self.static)
+        else:
+            with span(self.spans["replay"]):
+                try:
+                    self.graph.replay()
+                except Exception as exc:
+                    raise RuntimeError(f"device program {self.name} "
+                                       f"{self.key}: replay failed: "
+                                       f"{exc}") from exc
+            for c, n in zip(self.counters, self.per_replay):
+                c.launches += n
+            out = self.out
+        with span(self.spans["clone"]):
+            moved("d2d", nbytes(out))
+            return _tree_map(torch.clone, out)
 
 
 def cached_program(cache: dict, key: tuple, make_body, device,
                    **kw) -> DeviceProgram:
     """The program cached under ``key`` in ``cache`` (a plan's or a
     factor's own ``_cache``, so that it is freed with it), made with the
-    body ``make_body()`` on first use.  ``key[0]`` names the program."""
+    body ``make_body()`` on first use (the span ``program.<key[0]>.body``).
+    ``key[0]`` names the program."""
     prog = cache.get(key)
     if prog is None:
-        prog = cache[key] = DeviceProgram(key[0], key, make_body(), device,
-                                          **kw)
+        with span(f"program.{key[0]}.body"):
+            body = make_body()
+        prog = cache[key] = DeviceProgram(key[0], key, body, device, **kw)
     return prog
 
 

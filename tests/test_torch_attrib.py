@@ -229,3 +229,40 @@ def test_every_ablation_variant_runs(opts):
     res = ablate_pf.ablate(pfp, vals, pairs=1)
     assert set(res) == set(ablate_pf.VARIANTS) - {"full"}
     assert all(r["ms"] > 0 and r["full_ms"] > 0 for r in res.values())
+
+
+def test_idle_by_range_gives_idle_time_to_the_innermost_host_range():
+    """Window 0-100 on thread 1: a refactorize call holding three program
+    spans, a solve call holding one; device busy 35-55 and 68-72 (and a
+    kernel after the window).  A range of another thread is no host range
+    of the window's."""
+    events = [
+        _ev("user_annotation", "bench.window", 1, 0.0, 100.0),
+        _ev("user_annotation", "bench.refactorize", 1, 10.0, 50.0),
+        _ev("user_annotation", "super.factorize.assemble", 1, 12.0, 18.0),
+        _ev("user_annotation", "super.factorize.program", 1, 30.0, 10.0),
+        _ev("user_annotation", "super.factorize.wait", 1, 40.0, 18.0),
+        _ev("user_annotation", "bench.solve", 1, 65.0, 25.0),
+        _ev("user_annotation", "super.solve.upload", 1, 66.0, 4.0),
+        _ev("user_annotation", "other", 2, 0.0, 100.0),
+        _ev("cuda_runtime", "cudaGraphLaunch", 1, 31.0, 1.0, corr=1),
+        _ev("kernel", "gemm", 7, 35.0, 20.0, corr=1),
+        _ev("gpu_memcpy", "Memcpy HtoD", 7, 68.0, 4.0),
+        _ev("kernel", "late", 7, 120.0, 10.0),
+    ]
+    got = attrib.idle_by_range(events, window="bench.window")
+    assert got["window_us"] == 100.0 and got["busy_us"] == 24.0
+    assert got["idle_us"] == pytest.approx({
+        "bench.window": 25.0, "bench.refactorize": 4.0,
+        "super.factorize.assemble": 18.0, "super.factorize.program": 5.0,
+        "super.factorize.wait": 3.0, "bench.solve": 19.0,
+        "super.solve.upload": 2.0})
+    assert sum(got["idle_us"].values()) == pytest.approx(100.0 - 24.0)
+    assert got["ranges"]["super.factorize.wait"] == 1
+    assert "other" not in got["ranges"]
+    # without a window: the extent of the device ops (35-130), on the
+    # thread with the most ranges
+    got = attrib.idle_by_range(events)
+    assert got["window_us"] == 95.0 and got["busy_us"] == 34.0
+    with pytest.raises(ValueError, match="no range"):
+        attrib.idle_by_range(events, window="bench.missing")

@@ -831,6 +831,73 @@ def test_scoped_pf_capture_syncs_nothing(monkeypatch):
     assert torch.equal(got, again) and torch.equal(got, eager)
 
 
+class _NoSpan:
+    """A span that records nothing (the program as it was before spans)."""
+
+    seconds = 0.0
+
+    def __init__(self, name):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        pass
+
+
+@pytest.mark.gpu
+def test_spans_leave_the_pf_graph_unchanged(monkeypatch):
+    """The pf program captured with its spans and again with every span
+    of utils/programs.py replaced by one that records nothing: the same
+    node count and bit-identical replays."""
+    _need_card()
+    from suitesparse_tpu_torch.cholesky import pf
+    from suitesparse_tpu_torch.utils import programs
+    pfp, vals = _pf_on_card(16)
+    prog = pf.pf_program(pfp, np.float32, device="cuda")
+    got = prog(vals)
+    monkeypatch.setattr(programs, "span", _NoSpan)
+    monkeypatch.setattr(programs, "moved", lambda direction, n: None)
+    pfp._cache.pop(prog.key)
+    bare = pf.pf_program(pfp, np.float32, device="cuda")
+    assert bare is not prog
+    assert torch.equal(bare(vals), got) and bare.nodes == prog.nodes > 0
+
+
+@pytest.mark.gpu
+def test_spanned_pf_capture_syncs_nothing_and_counts_its_copies():
+    """torch.cuda.set_sync_debug_mode("error") around the pf program's
+    first call (warm-up, capture) and a replay inside an open span: the
+    spans wait on nothing, and the table counts the copy-in and the clone
+    of the result as device-to-device bytes, and the graph's launch."""
+    _need_card()
+    from suitesparse_tpu_torch.cholesky import pf
+    from suitesparse_tpu_torch.utils import trace
+    pfp, vals = _pf_on_card(12)
+    prog = pf.pf_program(pfp, np.float32, device="cuda")
+    before = trace.snapshot()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with trace.span("test.outer"):
+            got = prog(vals)
+            again = prog(vals)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, again) and prog.graph is not None
+    after = trace.snapshot()
+
+    def calls(name):
+        return after[name]["count"] - before.get(name, {"count": 0})["count"]
+    for part, n in (("warmup", 1), ("capture", 1), ("copy_in", 1),
+                    ("replay", 2), ("clone", 2)):
+        assert calls(f"program.pf.{part}") == n, part
+    assert prog.warmup_s == after["program.pf.warmup"]["calls"][-1].seconds
+    outer = after["test.outer"]["calls"][-1]
+    # the static clone at capture, one copy-in, two clones of the result
+    assert outer.d2d == 2 * vals.numel() * 4 + 2 * got.numel() * 4
+
+
 @pytest.mark.gpu
 def test_probe_precision_leaves_tf32_off():
     """After the precision probe on the card, float32 products are full
