@@ -538,6 +538,35 @@ def _assemble_values(A: SparseCSC, sym: Symbolic, ss: SuperSymbolic,
     return vals
 
 
+def _same_array(a: np.ndarray, b: np.ndarray) -> bool:
+    return a is b or np.array_equal(a, b)
+
+
+def _value_map(plan: NumericPlan, A: SparseCSC, sym: Symbolic) -> np.ndarray:
+    """Positions in ``A.data`` of the values of tril(PAP') in the order of
+    ``_assemble_values``, which selects and reorders A's entries and never
+    adds two: ``A.data[vmap].astype(dtype)`` is its result bit for bit.
+    ``sym`` is the analysis the plan was built from.
+
+    Made once per pattern (span ``plan.value_map``) by running that chain
+    on ``arange(nnz)``, and kept in ``plan._cache``.  A later call reuses
+    it when A's shape, stype, indptr and indices equal those it was made
+    from (the same arrays, or equal ones: each new matrix of the pattern
+    may bring its own), and rebuilds it for another pattern or layout."""
+    key = (A.shape, A.stype)
+    got = plan._cache.get("value_map")
+    if (got is not None and got[0] == key and _same_array(got[1], A.indptr)
+            and _same_array(got[2], A.indices)):
+        return got[3]
+    with span("plan.value_map"):
+        pos = SparseCSC(A.indptr, A.indices, np.arange(A.nnz, dtype=INDEX),
+                        A.shape, stype=A.stype, sorted=A.sorted)
+        vmap = _assemble_values(pos, sym, plan.ss,
+                                np.int32 if A.nnz < 2**31 else np.int64)
+    plan._cache["value_map"] = (key, A.indptr, A.indices, vmap)
+    return vmap
+
+
 def _first_nan_super(ss: SuperSymbolic, Lx: torch.Tensor) -> int:
     """First column of the first supernode whose panel holds a NaN
     (the failed pivot's supernode), or n."""
@@ -561,7 +590,9 @@ def factorize_super(A: SparseCSC, sym: Symbolic, ss: SuperSymbolic,
     dtype: float64 on the CPU and float32 on the card unless given.
 
     Spans (utils/trace): ``super.factorize`` around the call, and inside it
-    ``.assemble`` (the values of tril(PAP') on the host), ``.upload``,
+    ``.assemble`` (the values of tril(PAP') gathered on the host through
+    ``_value_map``, whose build on a pattern's first call is the span
+    ``plan.value_map`` inside it), ``.upload``,
     ``.prepare`` (first call: the program's warm-up and capture),
     ``.program`` (copy-in, replay, clone of the result), ``.wait`` (for the
     device) and ``.nan_scan``.  cm.info: ``factor_time`` is the program's
@@ -581,7 +612,8 @@ def factorize_super(A: SparseCSC, sym: Symbolic, ss: SuperSymbolic,
     plan = plan or build_plan(ss)
     prog = factor_program(plan, cm, dtype, dev)
     with span("super.factorize.assemble") as assembly:
-        host = _assemble_values(A, sym, ss, dtype)
+        host = np.take(A.data, _value_map(plan, A, sym)).astype(dtype,
+                                                                copy=False)
     with span("super.factorize.upload"):
         vals = torch.as_tensor(host, device=dev)
         moved("h2d", host.nbytes)

@@ -230,3 +230,87 @@ def test_syrk_helper_rounds_inputs_not_the_sum():
     assert not torch.equal(got, port_sn.syrk(B))
     low = (Bs.to(torch.bfloat16) @ Bs.to(torch.bfloat16).transpose(1, 2))
     assert not torch.equal(got, low.to(torch.float64))
+
+
+def _map_case(case):
+    """lap3d at a small grid; a full-storage SPD matrix whose columns hold
+    their entries out of order; an upper- and a lower-stored copy of it."""
+    if case == "lap3d":
+        return port_gen.laplacian_3d(7)
+    A = port_gen.random_spd(300, density=0.02, seed=3)
+    col = np.repeat(np.arange(A.ncol), np.diff(A.indptr))
+    order = np.lexsort((np.random.default_rng(4).random(A.nnz), col))
+    full = PortCSC(A.indptr, A.indices[order], A.data[order], A.shape,
+                   sorted=False)
+    assert not np.array_equal(full.indices, A.indices)
+    if case == "full_unsorted":
+        return full
+    half = full.triu(0) if case == "upper" else full.tril(0)
+    half.stype = 1 if case == "upper" else -1
+    return half
+
+
+@pytest.mark.parametrize("case", ["lap3d", "full_unsorted", "upper", "lower"])
+def test_value_map_gathers_the_assembled_values_bit_for_bit(case):
+    A = _map_case(case)
+    cm, sym, ss, plan = _setup(PORT, A)
+    vmap = port_sn._value_map(plan, A, sym)
+    assert vmap.dtype == np.int32
+    for dt in (np.float64, np.float32):
+        want = port_sn._assemble_values(A, sym, ss, dt)
+        got = A.data[vmap].astype(dt)
+        assert got.dtype == want.dtype
+        assert got.tobytes() == want.tobytes()
+
+
+def _solver(A, program):
+    cm = port_common()
+    cm.cholesky.supernodal = "supernodal"
+    cm.cholesky.program = program
+    return port_chol.CholeskySolver(sym=port_chol.analyze(A, cm), common=cm,
+                                    device="cpu")
+
+
+@pytest.mark.parametrize("program", ["unrolled", "pf", "wave"])
+def test_refactorize_through_the_value_map_gives_the_same_factor(program):
+    """Each refactorization's factor equals the program's result on the
+    values assembled by the symperm, transpose and sort chain."""
+    A = port_gen.laplacian_3d(7)
+    solver = _solver(A, program)
+    for scale in (1.0, 2.0, 0.5):
+        B = PortCSC(A.indptr.copy(), A.indices.copy(), A.data * scale,
+                    A.shape)
+        solver.refactorize(B)
+        vals = port_sn._assemble_values(B, solver.sym, solver.ss, np.float64)
+        prog = port_sn.factor_program(solver.plan, solver.common, np.float64,
+                                      torch.device("cpu"))
+        assert solver.factor.ok
+        assert torch.equal(solver.factor.Lx, prog(torch.as_tensor(vals)))
+
+
+def test_value_map_is_made_once_per_pattern_and_layout():
+    from suitesparse_tpu_torch.utils import trace
+    trace.reset()
+    try:
+        A = port_gen.laplacian_3d(6)
+        solver = _solver(A, "pf")
+        # three value sets, each a new matrix with its own index arrays
+        for scale in (1.0, 2.0, 3.0):
+            solver.refactorize(PortCSC(A.indptr.copy(), A.indices.copy(),
+                                       A.data * scale, A.shape))
+        got = trace.snapshot()
+        assert got["plan.value_map"]["count"] == 1
+        assert got["super.factorize.assemble"]["count"] == 3
+        assert {c.parent for c in got["plan.value_map"]["calls"]} == {
+            "super.factorize/super.factorize.assemble"}
+        full = solver.factor.Lx.clone()
+        # the same matrix stored as its upper triangle: a second build
+        U = PortCSC(A.indptr, A.indices, A.data * 3.0, A.shape).triu(0)
+        U.stype = 1
+        solver.refactorize(U)
+        got = trace.snapshot()
+        assert got["plan.value_map"]["count"] == 2
+        assert got["super.factorize.assemble"]["count"] == 4
+        assert torch.equal(solver.factor.Lx, full)
+    finally:
+        trace.reset()

@@ -156,7 +156,7 @@ SOLVE_SPANS = ("super.solve", "super.solve.bind",
                "super.solve.upload", "super.solve.program",
                "super.solve.wait", "super.solve.download")
 ONCE = ("cholesky.analyze", "plan.super_symbolic", "plan.build_plan",
-        "super.factorize.prepare")
+        "plan.value_map", "super.factorize.prepare")
 
 
 @pytest.mark.parametrize("program", ["pf", "wave", "unrolled"])
