@@ -52,6 +52,7 @@ from ..utils.device import (default_dtype, numpy_dtype, resolve_device,
                             torch_dtype)
 from ..utils.programs import (Binding, DeviceProgram, cached_program,
                               program_device)
+from ..utils.trace import moved, nbytes, span, spanned
 
 
 @dataclasses.dataclass
@@ -158,9 +159,14 @@ def _weighted_matching(A: SparseCSC) -> tuple[np.ndarray, int]:
     return best
 
 
+@spanned("umf.symbolic")
 def umf_symbolic(A: SparseCSC, common: Optional[Common] = None) -> UmfSymbolic:
     """Strategy selection + static row matching + symmetrized supernodal
-    analysis (umfpack_qsymbolic equivalent)."""
+    analysis (umfpack_qsymbolic equivalent).
+
+    Spans (utils/trace): ``umf.symbolic`` around the call, with the
+    ordering's and the plan builders' spans inside it and
+    ``plan.umf_maps`` (the full-A scatter maps)."""
     cm = common or default_common()
     cm.checkpoint("umf_symbolic")
     n = A.ncol
@@ -248,29 +254,35 @@ def umf_symbolic(A: SparseCSC, common: Optional[Common] = None) -> UmfSymbolic:
     #   i >= j -> L buffer at s(j): off + local(i)*ns + (j - j1)
     #   i <  j -> U^T buffer at s(i): off + local(j)*ns + (i - j1)
     p = sym.perm
-    B2 = B.permute(p, p).sort_indices()
-    cols = np.repeat(np.arange(n, dtype=INDEX), np.diff(B2.indptr))
-    rows = B2.indices
-    rows_list = [ss.rows_of(s) for s in range(ss.nsuper)]
-    sup = ss.super
+    with span("plan.umf_maps"):
+        B2 = B.permute(p, p).sort_indices()
+        cols = np.repeat(np.arange(n, dtype=INDEX), np.diff(B2.indptr))
+        rows = B2.indices
+        sup = ss.super.astype(np.int64)
+        rowptr = ss.sn_rowptr.astype(np.int64)
+        # (supernode, row) of every panel row, sorted: each supernode's
+        # rows are sorted, so one search finds a row's local index
+        keys = (np.repeat(np.arange(ss.nsuper, dtype=np.int64),
+                          np.diff(rowptr)) * (n + 1) + ss.sn_rows)
 
-    def _dst(rr, cc):
-        # entry (row rr, col cc) -> padded-panel position in supernode of cc
-        s_of = ss.col_to_super[cc]
-        out = np.empty(len(rr), dtype=INDEX)
-        for s in np.unique(s_of):
-            m = s_of == s
-            loc = np.searchsorted(rows_list[s], rr[m])
-            out[m] = ss.flat_pos(s, loc, cc[m] - int(sup[s]))
-        return out
+        def _dst(rr, cc):
+            # entry (row rr, col cc) -> padded-panel position in the
+            # supernode of cc (SuperSymbolic.flat_pos, for every entry)
+            s_of = ss.col_to_super[cc].astype(np.int64)
+            loc = np.searchsorted(keys, s_of * (n + 1) + rr) - rowptr[s_of]
+            ns = sup[s_of + 1] - sup[s_of]
+            Np = ss.panel_Np[s_of].astype(np.int64)
+            prow = np.where(loc < ns, loc, Np + (loc - ns))
+            return (ss.panel_off[s_of] + prow * Np
+                    + (cc - sup[s_of])).astype(INDEX)
 
-    low = rows >= cols
-    dstL = np.full(len(rows), -1, dtype=INDEX)
-    dstU = np.full(len(rows), -1, dtype=INDEX)
-    dstL[low] = _dst(rows[low], cols[low])
-    up = ~low
-    # U^T: entry (i, j), i<j stored at supernode of i, local index of j
-    dstU[up] = _dst(cols[up], rows[up])
+        low = rows >= cols
+        dstL = np.full(len(rows), -1, dtype=INDEX)
+        dstU = np.full(len(rows), -1, dtype=INDEX)
+        dstL[low] = _dst(rows[low], cols[low])
+        up = ~low
+        # U^T: entry (i, j), i<j stored at supernode of i, local index of j
+        dstU[up] = _dst(cols[up], rows[up])
 
     return UmfSymbolic(n=n, strategy=strategy, rowmatch=rowmatch, sym=sym,
                        ss=ss, plan=plan, a_scatter_L=dstL, a_scatter_U=dstU,
@@ -419,28 +431,40 @@ def _device_maps(S: UmfSymbolic, dev: torch.device) -> dict:
     key = ("umf", dev)
     got = S.plan._cache.get(key)
     if got is None:
-        maps = getattr(S, "_a_sorted", None)
-        if maps is None:
-            maps = (sorted_scatter_maps(S.a_scatter_L),
-                    sorted_scatter_maps(S.a_scatter_U))
-            S._a_sorted = maps
-        (srcL, dstL), (srcU, dstU) = maps
-        ss = S.ss
-        diag = [int(ss.panel_off[s]) + np.arange(ss.panel_shape(s)[1])
-                * (int(ss.panel_Np[s]) + 1) for s in range(ss.nsuper)]
-        got = dict(srcL=_index(srcL, dev), dstL=_index(dstL, dev),
-                   srcU=_index(srcU, dev), dstU=_index(dstU, dev),
-                   diag=_index(np.concatenate(diag), dev))
-        S.plan._cache[key] = got
+        with span("plan.umf_device_maps"):
+            maps = getattr(S, "_a_sorted", None)
+            if maps is None:
+                maps = (sorted_scatter_maps(S.a_scatter_L),
+                        sorted_scatter_maps(S.a_scatter_U))
+                S._a_sorted = maps
+            (srcL, dstL), (srcU, dstU) = maps
+            ss = S.ss
+            diag = [int(ss.panel_off[s]) + np.arange(ss.panel_shape(s)[1])
+                    * (int(ss.panel_Np[s]) + 1) for s in range(ss.nsuper)]
+            got = dict(srcL=_index(srcL, dev), dstL=_index(dstL, dev),
+                       srcU=_index(srcU, dev), dstU=_index(dstU, dev),
+                       diag=_index(np.concatenate(diag), dev))
+            S.plan._cache[key] = got
     return got
 
 
+@spanned("umf.numeric")
 def umf_numeric(A: SparseCSC, S: UmfSymbolic,
                 common: Optional[Common] = None, dtype=None,
                 device=None) -> UmfNumeric:
     """umfpack_*_numeric: the LU of B = P R^{-1} A Q on ``device`` (the
     card when None; raises without one).  dtype: float64/complex128 on
-    the CPU and float32/complex64 on the card unless given."""
+    the CPU and float32/complex64 on the card unless given.
+
+    Spans (utils/trace): ``umf.numeric`` around the call, and inside it
+    ``.values`` (row scaling, permutation, sort, column scaling and cast
+    of the values on the host; cm.info ``time_umf_values``), ``.upload``
+    (h2d), ``.program`` (the LU program's copy-in, replay and clones,
+    d2d) and ``.check`` (the NaN and pivot scan, which waits for the
+    device).  The BTF path nests one ``umf.numeric`` a block.  The first
+    call on a pattern warms up and captures the LU program inside
+    ``.program`` (``umf_program(S, dtype, device)`` holds its
+    ``warmup_s``, ``capture_s`` and ``nodes``)."""
     cm = common or default_common()
     cm.checkpoint("umf_numeric")
     dev = resolve_device(device)
@@ -487,40 +511,47 @@ def umf_numeric(A: SparseCSC, S: UmfSymbolic,
     # row scaling (umfpack default: sum scaling, umfpack.h); the host's
     # scaling and permutation of the values are timed on their own
     # (info "time_umf_values")
-    cm.tic("umf_values")
-    from .klu import _row_scale
-    Rs = _row_scale(A, cm.lu.scale)
-    # both scalings multiply the stored values in place, so B2 keeps every
-    # stored entry -- explicit zeros included -- in the order of the
-    # symbolic's scatter maps (a sparse product would drop stored zeros
-    # and shift every later value off its slot)
-    Asc = A.to_scipy().tocsc(copy=True)
-    Asc.data = Asc.data * (1.0 / Rs)[Asc.indices]
-    B2 = Asc[S.a_perm_rows, :][:, S.a_perm_cols].tocsc()
-    B2.sort_indices()
-    # column scaling by the matched diagonal (GESP/MC64 duals analog):
-    # makes every static pivot 1 after two-sided scaling, which keeps the
-    # restricted-pivot factorization well-conditioned on hard matrices
-    if S.strategy != "symmetric" and cm.lu.scale != "none":
-        Cs = np.abs(B2.diagonal())
-        Cs[(Cs == 0) | ~np.isfinite(Cs)] = 1.0
-        B2.data = B2.data * np.repeat(1.0 / Cs, np.diff(B2.indptr))
-    else:
-        Cs = np.ones(n)
-    if B2.nnz != len(S.a_scatter_L):
-        raise SparseError(Status.INVALID,
-                          "umf_numeric: the matrix's pattern is not the "
-                          "symbolic's")
+    with span("umf.numeric.values"):
+        cm.tic("umf_values")
+        from .klu import _row_scale
+        Rs = _row_scale(A, cm.lu.scale)
+        # both scalings multiply the stored values in place, so B2 keeps
+        # every stored entry -- explicit zeros included -- in the order of
+        # the symbolic's scatter maps (a sparse product would drop stored
+        # zeros and shift every later value off its slot)
+        Asc = A.to_scipy().tocsc(copy=True)
+        Asc.data = Asc.data * (1.0 / Rs)[Asc.indices]
+        B2 = Asc[S.a_perm_rows, :][:, S.a_perm_cols].tocsc()
+        B2.sort_indices()
+        # column scaling by the matched diagonal (GESP/MC64 duals analog):
+        # makes every static pivot 1 after two-sided scaling, which keeps
+        # the restricted-pivot factorization well-conditioned on hard
+        # matrices
+        if S.strategy != "symmetric" and cm.lu.scale != "none":
+            Cs = np.abs(B2.diagonal())
+            Cs[(Cs == 0) | ~np.isfinite(Cs)] = 1.0
+            B2.data = B2.data * np.repeat(1.0 / Cs, np.diff(B2.indptr))
+        else:
+            Cs = np.ones(n)
+        if B2.nnz != len(S.a_scatter_L):
+            raise SparseError(Status.INVALID,
+                              "umf_numeric: the matrix's pattern is not the "
+                              "symbolic's")
+        host = B2.data.astype(dtype)
+        cm.toc("umf_values")
 
     m = _device_maps(S, dev)
-    vj = torch.as_tensor(B2.data.astype(dtype), device=dev)
-    cm.toc("umf_values")
-    Lb, Ub, pivs = umf_program(S, dtype, dev)(vj)
+    with span("umf.numeric.upload"):
+        vj = torch.as_tensor(host, device=dev)
+        moved("h2d", host.nbytes)
+    with span("umf.numeric.program"):
+        Lb, Ub, pivs = umf_program(S, dtype, dev)(vj)
     # singular: a NaN/Inf anywhere, or a zero/denormal pivot on diag(U)
     # (umfpack's singular warning), read in float64 as the reference does
-    d = Lb[m["diag"]].abs().to(torch.float64)
-    singular = bool(~torch.isfinite(Lb).all()
-                    | (d < np.finfo(np.float64).tiny).any())
+    with span("umf.numeric.check"):
+        d = Lb[m["diag"]].abs().to(torch.float64)
+        singular = bool(~torch.isfinite(Lb).all()
+                        | (d < np.finfo(np.float64).tiny).any())
     t = cm.toc("umf_numeric")
     cm.status = Status.SINGULAR if singular else Status.OK
     cm.info.update({"umf_numeric_time": t, "umf_strategy": S.strategy})
@@ -677,14 +708,16 @@ def bind_umf_numeric(num: UmfNumeric) -> UmfSolveNumeric:
     R = _umf_solve_numeric(S, num.Lb.dtype, num.Lb.device)
     if R.holds(num):
         return R
-    R.bound.clear()
-    tot = S.plan.total
-    R.Lb.copy_(num.Lb[:tot])
-    R.Ub.copy_(num.Ub[:tot])
-    for lv_r, lv in zip(R.pivs, num.pivs, strict=True):
-        for p_r, p in zip(lv_r, lv, strict=True):
-            p_r.copy_(p)
-    R.bound.set(num, num.Lb, num.Ub)
+    with span("umf.solve.bind"):
+        R.bound.clear()
+        tot = S.plan.total
+        R.Lb.copy_(num.Lb[:tot])
+        R.Ub.copy_(num.Ub[:tot])
+        for lv_r, lv in zip(R.pivs, num.pivs, strict=True):
+            for p_r, p in zip(lv_r, lv, strict=True):
+                p_r.copy_(p)
+        moved("d2d", nbytes((R.Lb, R.Ub, R.pivs)))
+        R.bound.set(num, num.Lb, num.Ub)
     return R
 
 
@@ -753,9 +786,10 @@ def _refine(solve_fn, x, bk, A, system, steps, num, cm):
     anorm = A.norm(np.inf)
     best_x, best_omega = x, np.inf
     for it in range(steps):
-        r = bk - Ssc @ x
-        omega = np.abs(r).max() / max(
-            anorm * np.abs(x).max() + np.abs(bk).max(), 1e-300)
+        with span("umf.solve.residual"):
+            r = bk - Ssc @ x
+            omega = np.abs(r).max() / max(
+                anorm * np.abs(x).max() + np.abs(bk).max(), 1e-300)
         cm.info[f"umf_omega_{it}"] = float(omega)
         if not np.isfinite(omega) or omega >= best_omega:
             x = best_x                # diverging/stagnating: keep the best
@@ -766,12 +800,14 @@ def _refine(solve_fn, x, bk, A, system, steps, num, cm):
         x = x + solve_fn(r)
     esc = cm.lu.escalate_omega
     if esc and not best_omega <= esc:
-        x2 = _klu_escalate(num, A, bk, system, cm)
+        with span("umf.solve.escalate"):
+            x2 = _klu_escalate(num, A, bk, system, cm)
         if x2 is not None:
             x = x2
     return x
 
 
+@spanned("umf.solve")
 def umf_solve(num: UmfNumeric, b: np.ndarray, system: str = "A",
               refine: Optional[int] = None, A: Optional[SparseCSC] = None,
               common: Optional[Common] = None) -> np.ndarray:
@@ -788,7 +824,15 @@ def umf_solve(num: UmfNumeric, b: np.ndarray, system: str = "A",
     Iterative refinement (max cm.lu.refine_steps, omega criteria of
     umf_solve.c:194-269) applies to the A/At/Aat systems when the original
     A is supplied.  The triangular solves run on the factor's device; b,
-    the refinement and the result are on the host."""
+    the refinement and the result are on the host.
+
+    Spans (utils/trace): ``umf.solve`` around the call, and inside it
+    ``.bind`` (where ``bind_umf_numeric`` copies a numeric in, d2d), per
+    solve-program call ``.upload`` (h2d), ``.program`` (d2d) and
+    ``.download`` (d2h; it waits for the device), each float64 host
+    residual of the refinement as ``.residual`` (their count is the
+    refinement count) and the KLU fallback as ``.escalate``.  The BTF
+    path nests one ``umf.solve`` a block."""
     cm = common or default_common()
     cm.checkpoint("umf_solve")
     S = num.symbolic
@@ -820,8 +864,16 @@ def umf_solve(num: UmfNumeric, b: np.ndarray, system: str = "A",
         bind_umf_numeric(num)
         prog = umf_solve_program(S, name, k, conj and is_c, num.Lb.dtype,
                                  num.Lb.device)
-        zt = torch.as_tensor(np.asarray(z), device=prog.device)
-        return prog(zt.to(num.Lb.dtype)).cpu().numpy().astype(host_dt)
+        with span("umf.solve.upload"):
+            z = np.asarray(z)
+            zt = torch.as_tensor(z, device=prog.device).to(num.Lb.dtype)
+            moved("h2d", z.nbytes)
+        with span("umf.solve.program"):
+            xt = prog(zt)
+        with span("umf.solve.download"):
+            out = xt.cpu().numpy()
+            moved("d2h", out.nbytes)
+        return out.astype(host_dt)
 
     def _lsolve(z):
         return _run("lsolve", z)
@@ -984,6 +1036,99 @@ def umf_lunz(num: UmfNumeric) -> tuple[int, int]:
                 PU = Ub[base:base + B * Mp * Np].reshape(B, Mp, Np)
                 unz += int(np.count_nonzero(PU[:, Np:, :]))
     return lnz, unz
+
+
+def umf_get_numeric(num: UmfNumeric) -> dict:
+    """umfpack_get_numeric analog: the factor as host SciPy matrices.
+
+    Returns {"L", "U", "P", "Q", "Rs", "Cs"}: L (unit lower, its unit
+    diagonal stored) and U (upper) as float64 (complex128) CSC with sorted
+    row indices, the row permutation P with the block pivots folded in,
+    the column permutation Q, the row scaling Rs (of A's rows) and the
+    column scaling Cs (of the factored matrix's columns), such that
+
+        P (R^{-1} A) Q C^{-1} = L U,   i.e.
+        (A / Rs[:, None])[P][:, Q] / Cs[None, :] = L @ U
+
+    (row k of the factored matrix is row P[k] of A, column k is column
+    Q[k]).  A block pivot permutes the rows of its own front, so the L
+    rows of every descendant that fall in that front move with it, as
+    ``_lu_lsolve_impl`` applies them.  Pattern entries of the panels are
+    kept whatever their value.  The entries are gathered and sorted on the
+    numeric's device, then copied to the host.  Raises
+    SparseError(NOT_AVAILABLE) on a BTF numeric, whose blocks are factored
+    apart."""
+    if num.bnums is not None:
+        raise SparseError(Status.NOT_AVAILABLE,
+                          "umf_get_numeric: the BTF/singleton numeric has no "
+                          "single L U; factor with lu.singletons = False")
+    S = num.symbolic
+    n = S.n
+    dev = num.Lb.device
+    # the block pivots as one permutation of the factored rows
+    blk = np.arange(n, dtype=np.int64)
+    for li, level in enumerate(S.plan.levels):
+        for bi, b in enumerate(level):
+            perm = num.pivs[li][bi].cpu().numpy()
+            ok = b.colidx < n
+            blk[b.colidx[ok]] = np.take_along_axis(b.colidx, perm,
+                                                   axis=1)[ok]
+    if not np.array_equal(np.sort(blk), np.arange(n)):
+        raise SparseError(Status.SINGULAR, "umf_get_numeric: a block pivot "
+                          "left its front (a singular front)")
+    iblk = torch.as_tensor(np.argsort(blk), device=dev)
+    ar = torch.arange(n, device=dev)
+    L = [(ar, ar, torch.ones(n, dtype=num.Lb.dtype, device=dev))]
+    U = []
+    for b in (b for level in S.plan.levels for b in level):
+        B, Np, Mb = len(b.sids), b.Np, b.Mb
+        size = B * (Np + Mb) * Np
+        PL, PU = (buf[b.base:b.base + size].view(B, Np + Mb, Np)
+                  for buf in (num.Lb, num.Ub))
+        c = torch.as_tensor(b.colidx, device=dev)            # (B, Np)
+        ok = c < n
+        # the front block: strictly lower L, upper U (pivoted rows)
+        front = ok[:, :, None] & ok[:, None, :]
+        lower = torch.ones((Np, Np), dtype=torch.bool, device=dev).tril(-1)
+        rows, cols = (c[:, :, None].expand(B, Np, Np),
+                      c[:, None, :].expand(B, Np, Np))
+        for keep, out in ((front & lower, L), (front & ~lower, U)):
+            out.append((rows[keep], cols[keep], PL[:, :Np, :][keep]))
+        if Mb:
+            # below the front: L21 (rows moved by the ancestors' block
+            # pivots) and U12, stored transposed in Ub
+            r = torch.as_tensor(b.rowidx, device=dev)        # (B, Mb)
+            below = (r < n)[:, :, None] & ok[:, None, :]
+            rows = r[:, :, None].expand(B, Mb, Np)[below]
+            cols = c[:, None, :].expand(B, Mb, Np)[below]
+            L.append((iblk[rows], cols, PL[:, Np:, :][below]))
+            U.append((cols, rows, PU[:, Np:, :][below]))
+    Cs = num.Cs if num.Cs is not None else np.ones(n)
+    return dict(L=_host_csc(L, n), U=_host_csc(U, n),
+                P=np.asarray(S.a_perm_rows)[blk],
+                Q=np.asarray(S.a_perm_cols), Rs=np.asarray(num.Rs),
+                Cs=np.asarray(Cs))
+
+
+def _host_csc(parts, n: int):
+    """The SciPy CSC matrix (float64 or complex128, row indices sorted) of
+    the (rows, cols, values) tensors ``parts``, sorted on their device."""
+    import scipy.sparse as sp
+    rows, cols, vals = (torch.cat(p) for p in zip(*parts))
+    key, order = torch.sort(cols * n + rows)
+    del rows
+    vals = vals[order].to(torch.complex128 if vals.is_complex()
+                          else torch.float64)
+    small = len(key) < np.iinfo(np.int32).max
+    itype = (np.int32, torch.int32) if small else (np.int64, torch.int64)
+    indptr = np.zeros(n + 1, dtype=itype[0])
+    np.cumsum(torch.bincount(cols, minlength=n).cpu().numpy(),
+              out=indptr[1:])
+    M = sp.csc_matrix((vals.cpu().numpy(),
+                       (key % n).to(itype[1]).cpu().numpy(), indptr),
+                      shape=(n, n))
+    M.has_sorted_indices = True
+    return M
 
 
 def _perm_parity(p) -> float:
