@@ -40,14 +40,16 @@ import numpy as np
 import torch
 
 from ..core.common import Common, default_common
-from ..core.sparse import INDEX, SparseCSC, SYM_UPPER, invert_permutation
+from ..core.sparse import (INDEX, UNSYM, SparseCSC, SYM_UPPER,
+                           invert_permutation)
 from ..core.status import SparseError, Status
 from ..graph import maxtrans
 from ..cholesky.supernodal import SuperSymbolic, super_symbolic
 from ..cholesky.symbolic import Symbolic, analyze
 from ..cholesky.super_numeric import (NumericPlan, _index, _panels,
-                                      _set_cols, _sub_rows, build_plan,
-                                      segment_sum, sorted_scatter_maps)
+                                      _same_array, _set_cols, _sub_rows,
+                                      build_plan, segment_sum,
+                                      sorted_scatter_maps)
 from ..utils.device import (default_dtype, numpy_dtype, resolve_device,
                             torch_dtype)
 from ..utils.programs import (Binding, DeviceProgram, cached_program,
@@ -448,6 +450,115 @@ def _device_maps(S: UmfSymbolic, dev: torch.device) -> dict:
     return got
 
 
+@dataclasses.dataclass(eq=False)
+class _UmfValueMap:
+    """Where each value of the factored matrix B2 = (A scaled)[a_perm_rows,
+    :][:, a_perm_cols], columns sorted, comes from in ``A.data``, and the
+    orders its scalings read A in -- all of them fixed by the pattern.
+
+    Made by ``_umf_value_map`` for A's shape, stype, ``indptr`` and
+    ``indices``; ``dev`` holds ``vmap``'s device copies."""
+
+    key: tuple
+    indptr: np.ndarray
+    indices: np.ndarray
+    vmap: np.ndarray            # B2's entries, in the scatter maps' order
+    csr_order: np.ndarray       # A's entries row by row (_row_scale's CSR)
+    nonempty: np.ndarray        # (nrow,) rows with an entry
+    starts: np.ndarray          # their first entries in csr_order
+    diag_pos: Optional[np.ndarray]  # (n,) B2's diagonal entries (-1: none)
+    b2_col: Optional[np.ndarray]    # (nnz,) B2's column of each A entry
+    dev: dict = dataclasses.field(default_factory=dict)
+
+    def device_vmap(self, dev: torch.device) -> torch.Tensor:
+        got = self.dev.get(dev)
+        if got is None:
+            got = self.dev[dev] = torch.as_tensor(self.vmap, device=dev)
+        return got
+
+
+def _umf_value_map(S: UmfSymbolic, A: SparseCSC) -> _UmfValueMap:
+    """The value map of ``A``'s pattern under the symbolic ``S``, kept in
+    ``S.plan._cache``.  A later call reuses it when A's shape, stype,
+    indptr and indices equal those it was made from (the same arrays, or
+    equal ones: each new matrix of the pattern may bring its own), and
+    rebuilds it for another pattern or layout.
+
+    Made (span ``plan.umf_value_map``) by running the values' chain --
+    SciPy's CSR for the row sums, the row and column fancy-indexing, the
+    column sort -- on the positions of A's entries, since each step only
+    selects and reorders.  Raises SparseError(INVALID) when A's entry
+    count is not the symbolic's."""
+    key = (A.shape, A.stype)
+    got = S.plan._cache.get("umf_value_map")
+    if (got is not None and got.key == key
+            and _same_array(got.indptr, A.indptr)
+            and _same_array(got.indices, A.indices)):
+        return got
+    with span("plan.umf_value_map"):
+        itype = np.int32 if A.nnz < 2**31 - 1 else np.int64
+        # positions from 1: a position 0 would be a stored zero
+        pos = SparseCSC(A.indptr, A.indices,
+                        np.arange(1, A.nnz + 1, dtype=np.int64),
+                        A.shape).to_scipy()
+        csr = pos.tocsr()
+        nonempty = np.diff(csr.indptr) > 0
+        B2 = pos[S.a_perm_rows, :][:, S.a_perm_cols].tocsc()
+        B2.sort_indices()
+        if B2.nnz != len(S.a_scatter_L):
+            raise SparseError(Status.INVALID,
+                              "umf_numeric: the matrix's pattern is not the "
+                              "symbolic's")
+        vmap = (B2.data - 1).astype(itype)
+        diag_pos = b2_col = None
+        if S.strategy != "symmetric":
+            diag_pos = (B2.diagonal() - 1).astype(itype)
+            b2_col = np.empty(A.nnz, dtype=itype)
+            b2_col[vmap] = np.repeat(np.arange(S.n, dtype=itype),
+                                     np.diff(B2.indptr))
+        got = _UmfValueMap(
+            key=key, indptr=A.indptr, indices=A.indices, vmap=vmap,
+            csr_order=(csr.data - 1).astype(itype), nonempty=nonempty,
+            starts=csr.indptr[:-1][nonempty], diag_pos=diag_pos,
+            b2_col=b2_col)
+    S.plan._cache["umf_value_map"] = got
+    return got
+
+
+def _scaled_values(vm: _UmfValueMap, S: UmfSymbolic, data: np.ndarray,
+                   indices: np.ndarray, scale: str, dtype):
+    """(values, Rs, Cs): A's values scaled on both sides and cast to
+    ``dtype``, in A's own order, with their row and column scalings.  Each
+    float operation is the one the SciPy chain that the map stands for
+    makes on the same operands, so ``values[vm.vmap]`` is that chain's B2
+    bit for bit: the row sums are ``klu._row_scale``'s (umfpack default:
+    sum scaling, umfpack.h), summed in its CSR order."""
+    nrow = len(vm.nonempty)
+    Rs = np.ones(nrow)
+    if scale != "none" and len(data):
+        red = np.maximum.reduceat if scale == "max" else np.add.reduceat
+        Rs[vm.nonempty] = red(np.abs(np.take(data, vm.csr_order)),
+                               vm.starts)
+    Rs[Rs == 0.0] = 1.0
+    # both scalings multiply the stored values in place, so every stored
+    # entry -- explicit zeros included -- keeps its slot in the symbolic's
+    # scatter maps (a sparse product would drop stored zeros)
+    sc = data * np.take(1.0 / Rs, indices)
+    # column scaling by the matched diagonal (GESP/MC64 duals analog):
+    # makes every static pivot 1 after two-sided scaling, which keeps the
+    # restricted-pivot factorization well-conditioned on hard matrices
+    if S.strategy != "symmetric" and scale != "none":
+        has = vm.diag_pos >= 0
+        diag = np.zeros(S.n, dtype=sc.dtype)
+        diag[has] = np.take(sc, vm.diag_pos[has])
+        Cs = np.abs(diag)
+        Cs[(Cs == 0) | ~np.isfinite(Cs)] = 1.0
+        sc = sc * np.take(1.0 / Cs, vm.b2_col)
+    else:
+        Cs = np.ones(S.n)
+    return sc.astype(dtype), Rs, Cs
+
+
 @spanned("umf.numeric")
 def umf_numeric(A: SparseCSC, S: UmfSymbolic,
                 common: Optional[Common] = None, dtype=None,
@@ -457,14 +568,17 @@ def umf_numeric(A: SparseCSC, S: UmfSymbolic,
     the CPU and float32/complex64 on the card unless given.
 
     Spans (utils/trace): ``umf.numeric`` around the call, and inside it
-    ``.values`` (row scaling, permutation, sort, column scaling and cast
-    of the values on the host; cm.info ``time_umf_values``), ``.upload``
-    (h2d), ``.program`` (the LU program's copy-in, replay and clones,
-    d2d) and ``.check`` (the NaN and pivot scan, which waits for the
-    device).  The BTF path nests one ``umf.numeric`` a block.  The first
-    call on a pattern warms up and captures the LU program inside
-    ``.program`` (``umf_program(S, dtype, device)`` holds its
-    ``warmup_s``, ``capture_s`` and ``nodes``)."""
+    ``.values`` (the row sums, the row and column scalings and the cast
+    of the values on the host, in A's own order; cm.info
+    ``time_umf_values``), with ``plan.umf_value_map`` inside the first
+    one of a pattern (``_umf_value_map``: where each value of B2 comes
+    from in A), ``.upload`` (h2d), ``.gather`` (the values put in B2's
+    order on the device, d2d), ``.program`` (the LU program's copy-in,
+    replay and clones, d2d) and ``.check`` (the NaN and pivot scan, which
+    waits for the device).  The BTF path nests one ``umf.numeric`` a
+    block.  The first call on a pattern warms up and captures the LU
+    program inside ``.program`` (``umf_program(S, dtype, device)`` holds
+    its ``warmup_s``, ``capture_s`` and ``nodes``)."""
     cm = common or default_common()
     cm.checkpoint("umf_numeric")
     dev = resolve_device(device)
@@ -508,42 +622,27 @@ def umf_numeric(A: SparseCSC, S: UmfSymbolic,
                           Rs=np.ones(n), dtype=dtype, singular=singular,
                           bnums=bnums, bAs=bAs, Spq_csc=Spq,
                           Spq_csr=Spq.tocsr())
-    # row scaling (umfpack default: sum scaling, umfpack.h); the host's
-    # scaling and permutation of the values are timed on their own
-    # (info "time_umf_values")
+    # the host scales and casts the values in A's order (info
+    # "time_umf_values"); the device puts them in B2's order
     with span("umf.numeric.values"):
         cm.tic("umf_values")
-        from .klu import _row_scale
-        Rs = _row_scale(A, cm.lu.scale)
-        # both scalings multiply the stored values in place, so B2 keeps
-        # every stored entry -- explicit zeros included -- in the order of
-        # the symbolic's scatter maps (a sparse product would drop stored
-        # zeros and shift every later value off its slot)
-        Asc = A.to_scipy().tocsc(copy=True)
-        Asc.data = Asc.data * (1.0 / Rs)[Asc.indices]
-        B2 = Asc[S.a_perm_rows, :][:, S.a_perm_cols].tocsc()
-        B2.sort_indices()
-        # column scaling by the matched diagonal (GESP/MC64 duals analog):
-        # makes every static pivot 1 after two-sided scaling, which keeps
-        # the restricted-pivot factorization well-conditioned on hard
-        # matrices
-        if S.strategy != "symmetric" and cm.lu.scale != "none":
-            Cs = np.abs(B2.diagonal())
-            Cs[(Cs == 0) | ~np.isfinite(Cs)] = 1.0
-            B2.data = B2.data * np.repeat(1.0 / Cs, np.diff(B2.indptr))
-        else:
-            Cs = np.ones(n)
-        if B2.nnz != len(S.a_scatter_L):
-            raise SparseError(Status.INVALID,
-                              "umf_numeric: the matrix's pattern is not the "
-                              "symbolic's")
-        host = B2.data.astype(dtype)
+        if A.stype != UNSYM:
+            # the full matrix, whose values the scalings read
+            A = SparseCSC.from_scipy(A.to_scipy())
+        vm = _umf_value_map(S, A)
+        data = A.data if A.data is not None else np.ones(A.nnz)
+        host, Rs, Cs = _scaled_values(vm, S, data, A.indices, cm.lu.scale,
+                                      dtype)
         cm.toc("umf_values")
 
     m = _device_maps(S, dev)
     with span("umf.numeric.upload"):
-        vj = torch.as_tensor(host, device=dev)
+        va = torch.as_tensor(host, device=dev)
         moved("h2d", host.nbytes)
+    with span("umf.numeric.gather"):
+        vj = torch.index_select(va, 0, vm.device_vmap(dev))
+        del va
+        moved("d2d", host.nbytes)
     with span("umf.numeric.program"):
         Lb, Ub, pivs = umf_program(S, dtype, dev)(vj)
     # singular: a NaN/Inf anywhere, or a zero/denormal pivot on diag(U)
