@@ -22,12 +22,12 @@ the wave program and the bfloat16 SYRK option, each refined in float64.
 Then the LU family (``[lu]``, no kernel of the port on its path): the
 multifrontal LU (umf_symbolic, umf_numeric refactorizations, umf_solve
 with float64 refinement) on cd3d_44, a convection-diffusion operator
-built here, and on randunsym_5000; a singular case; and KLU on
+(``io.generators.cd3d``), and on randunsym_5000; a singular case; and KLU on
 circuit_4000, on the host and through its device twin with a sweep of
 value sets.  Then the QR family (``[qr]``, no kernel of the port on its
 path either): the multifrontal QR (qr_symbolic, qr_factorize
 refactorizations, the least-squares solve through Q'b and the host R
-solve) on grad3d_32_tik, a Tikhonov-damped 3-D gradient built here, and
+solve) on grad3d_32_tik, a Tikhonov-damped 3-D gradient, and
 on randunsym_5000, each against a float64 oracle; the keep_q paths
 (spqr_null, spqr_pinv, qr_min2norm, qr_qmult, qr_q) on grad3d_16; and the
 Factorize/backslash front door on an SPD, an unsymmetric, a rectangular
@@ -111,6 +111,9 @@ import time
 
 import numpy as np
 
+from suitesparse_tpu_torch.io.generators import (cd3d, grad3d, grad3d_tik,
+                                                 ring_chords)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MATRICES = ("lap3d_44", "fem3d_80000")
 TIMED_MATRIX = MATRICES[0]         # block_chol is timed at its shapes
@@ -149,7 +152,6 @@ GRAPH_N = 1_000_000
 # the [lu] phase: multifrontal LU (cd3d_44, randunsym_5000), a singular
 # case, and KLU's device twin on circuit_like(KLU_N) with a sweep of
 # KLU_SWEEP value sets
-LU_PECLET = 0.5                # cell Peclet number of cd3d
 LU_REPS = 5
 LU_REFINE = 3
 LU_OMEGA_MAX = 1e-11           # after LU_REFINE float64 refinement steps
@@ -160,12 +162,11 @@ KLU_N = 4000
 KLU_SWEEP = 8
 KLU_SWEEP_REPS = 2             # pairs of the sweep (about 2 s a run)
 KLU_RES_MAX = 1e-4             # float32 device solves
-# the [qr] phase: grad3d_QR_TIK_K_tik = [G; QR_TIK_MU I] and randunsym_5000
+# the [qr] phase: grad3d_QR_TIK_K_tik = [G; 2 I] and randunsym_5000
 # through qr_symbolic/qr_factorize/qr_rsolve, the keep_q paths on
 # grad3d_QR_Q_K (qr_q at grad3d_QR_QQ_K), and Factorize/backslash
 QR_TIK_K = 32
 QR_RU_N = 5000                 # bench_extra.py:122-127's fallback size
-QR_TIK_MU = 2.0
 QR_TIK_MAX = 1e-5              # cond 2: the float32 solution vs float64
 QR_RANDUNSYM_MAX = 1e-4        # kappa_1 4.39 (host estimate), PERF.md
 QR_KEEPQ_MAX = 1e-4            # grad3d_16 in float32 vs float64 (kappa 18)
@@ -1331,22 +1332,6 @@ def run_ops(A, S):
     return row, bc, Xs
 
 
-def ring_chords(n, seed):
-    """Ring + 3n random chords: connected, ~4 edges a vertex (the JAX
-    package's at-scale algorithm tests)."""
-    import scipy.sparse as sp
-    from suitesparse_tpu_torch.core.sparse import SparseCSC
-    rng = np.random.default_rng(seed)
-    src = np.concatenate([np.arange(n), rng.integers(0, n, 3 * n)])
-    dst = np.concatenate([(np.arange(n) + 1) % n, rng.integers(0, n, 3 * n)])
-    keep = src != dst
-    S = sp.csc_matrix((np.ones(keep.sum()), (src[keep], dst[keep])),
-                      shape=(n, n))
-    S.sum_duplicates()
-    S.data[:] = 1.0
-    return SparseCSC.from_scipy(S)
-
-
 def symmetric_random(n, seed):
     """Symmetrized random graph with 4n edges (the same tests')."""
     import scipy.sparse as sp
@@ -1967,21 +1952,6 @@ def run_front():
 # The LU family: multifrontal LU (umf_*) and KLU's device twin
 # ---------------------------------------------------------------------------
 
-def cd3d(m: int, p: float = LU_PECLET):
-    """The 7-point first-order upwind convection-diffusion operator on the
-    m^3 grid: the Kronecker sum of tridiag(-(1+p), 2+p, -1) along each
-    axis (cell Peclet number p) -- a symmetric pattern with unsymmetric
-    values, n = m^3."""
-    import scipy.sparse as sp
-    from suitesparse_tpu_torch.core.sparse import SparseCSC
-    T = sp.diags([np.full(m - 1, -(1.0 + p)), np.full(m, 2.0 + p),
-                  np.full(m - 1, -1.0)], [-1, 0, 1])
-    eye = sp.identity(m)
-    A = (sp.kron(sp.kron(T, eye), eye) + sp.kron(sp.kron(eye, T), eye)
-         + sp.kron(sp.kron(eye, eye), T))
-    return SparseCSC.from_scipy(sp.csc_matrix(A))
-
-
 def lu_matrices():
     """The [lu] phase's multifrontal matrices: (name, A)."""
     from suitesparse_tpu_torch.io.generators import random_unsym
@@ -2269,28 +2239,6 @@ def run_lu() -> list:
 # ---------------------------------------------------------------------------
 # The QR family: multifrontal QR, spqr_rank, and the Factorize front door
 # ---------------------------------------------------------------------------
-
-def grad3d(k: int):
-    """The forward-difference gradient of the k^3 grid: the Kronecker sum
-    of (k-1) x k difference matrices, 3 (k-1) k^2 x k^3, rank k^3 - 1 (the
-    constants span its null space)."""
-    import scipy.sparse as sp
-    D = sp.diags([-np.ones(k - 1), np.ones(k - 1)], [0, 1], shape=(k - 1, k))
-    eye = sp.identity(k)
-    return sp.vstack([sp.kron(sp.kron(D, eye), eye),
-                      sp.kron(sp.kron(eye, D), eye),
-                      sp.kron(sp.kron(eye, eye), D)]).tocsc()
-
-
-def grad3d_tik(k: int, mu: float = QR_TIK_MU):
-    """Tikhonov-damped gradient [G; mu I]: full column rank, sigma_min =
-    mu, sigma_max = sqrt(12 + mu^2)."""
-    import scipy.sparse as sp
-    from suitesparse_tpu_torch.core.sparse import SparseCSC
-    G = grad3d(k)
-    return SparseCSC.from_scipy(sp.vstack(
-        [G, mu * sp.identity(G.shape[1])]).tocsc())
-
 
 def qr_plan_stats(S) -> dict:
     """Levels, buckets, buffer sizes, the largest bucket workspace, the

@@ -36,7 +36,7 @@ from ..core.status import Status
 from ..utils.device import (default_dtype, numpy_dtype, resolve_device,
                             torch_dtype)
 from ..utils.programs import (Binding, DeviceProgram, cached_program,
-                              program_device)
+                              pattern_map, program_device)
 from ..utils.trace import moved, nbytes, span, spanned
 from .supernodal import SuperSymbolic
 from .symbolic import Symbolic
@@ -538,10 +538,6 @@ def _assemble_values(A: SparseCSC, sym: Symbolic, ss: SuperSymbolic,
     return vals
 
 
-def _same_array(a: np.ndarray, b: np.ndarray) -> bool:
-    return a is b or np.array_equal(a, b)
-
-
 def _value_map(plan: NumericPlan, A: SparseCSC, sym: Symbolic) -> np.ndarray:
     """Positions in ``A.data`` of the values of tril(PAP') in the order of
     ``_assemble_values``, which selects and reorders A's entries and never
@@ -549,22 +545,17 @@ def _value_map(plan: NumericPlan, A: SparseCSC, sym: Symbolic) -> np.ndarray:
     ``sym`` is the analysis the plan was built from.
 
     Made once per pattern (span ``plan.value_map``) by running that chain
-    on ``arange(nnz)``, and kept in ``plan._cache``.  A later call reuses
-    it when A's shape, stype, indptr and indices equal those it was made
-    from (the same arrays, or equal ones: each new matrix of the pattern
-    may bring its own), and rebuilds it for another pattern or layout."""
-    key = (A.shape, A.stype)
-    got = plan._cache.get("value_map")
-    if (got is not None and got[0] == key and _same_array(got[1], A.indptr)
-            and _same_array(got[2], A.indices)):
-        return got[3]
-    with span("plan.value_map"):
+    on ``arange(nnz)``, and kept in ``plan._cache`` as a ``PatternMap``
+    (utils/programs), reused while A has the pattern it was made from and
+    rebuilt for another pattern or layout."""
+    def build():
         pos = SparseCSC(A.indptr, A.indices, np.arange(A.nnz, dtype=INDEX),
                         A.shape, stype=A.stype, sorted=A.sorted)
-        vmap = _assemble_values(pos, sym, plan.ss,
-                                np.int32 if A.nnz < 2**31 else np.int64)
-    plan._cache["value_map"] = (key, A.indptr, A.indices, vmap)
-    return vmap
+        itype = np.int32 if A.nnz < 2**31 else np.int64
+        return _assemble_values(pos, sym, plan.ss, itype), None
+
+    return pattern_map(plan._cache, "value_map", A, build,
+                       "plan.value_map").vmap
 
 
 def _first_nan_super(ss: SuperSymbolic, Lx: torch.Tensor) -> int:
@@ -774,11 +765,8 @@ class SolveFactor:
     perm: torch.Tensor
     invperm: torch.Tensor
     dinv: Optional[DeviceProgram]
+    bound: Binding
     perm_host: Optional[np.ndarray] = None
-    bound: Binding = dataclasses.field(default_factory=Binding)
-
-    def holds(self, f: SuperFactor) -> bool:
-        return self.bound.holds(f, f.Lx)
 
 
 def _solve_factor(plan: NumericPlan, wave: bool, dt: torch.dtype,
@@ -796,8 +784,9 @@ def _solve_factor(plan: NumericPlan, wave: bool, dt: torch.dtype,
                              device=dev)
             dinv = dinv_program(wp, Lx)
         idx = torch.zeros(plan.n, dtype=torch.int64, device=dev)
-        got = plan._cache[key] = SolveFactor(Lx=Lx, Dv=Dv, perm=idx,
-                                             invperm=idx.clone(), dinv=dinv)
+        got = plan._cache[key] = SolveFactor(
+            Lx=Lx, Dv=Dv, perm=idx, invperm=idx.clone(), dinv=dinv,
+            bound=Binding((Lx,) if Dv is None else (Lx, Dv)))
     return got
 
 
@@ -810,26 +799,24 @@ def bind_solve_factor(f: SuperFactor,
     other values, are there: repeated solves on one factor copy nothing."""
     plan = f.plan
     wave = plan.use_wave(common)
-    dev, dt = f.Lx.device, f.Lx.dtype
-    R = _solve_factor(plan, wave, dt, dev, common)
-    if R.holds(f):
-        return R
-    with span("super.solve.bind"):
-        R.bound.clear()
-        R.Lx.copy_(f.Lx[:plan.total])
-        moved("d2d", nbytes(R.Lx))
-        if wave:
-            if f._dinv is None:
-                f._dinv = R.dinv()
-            R.Dv.copy_(f._dinv)
-            moved("d2d", nbytes(R.Dv))
+    dev = f.Lx.device
+    R = _solve_factor(plan, wave, f.Lx.dtype, dev, common)
+
+    def sources():
+        # the permutation is compared on the host and copied only if new
         if R.perm_host is None or not np.array_equal(R.perm_host, f.perm):
             R.perm.copy_(_index(f.perm, dev))
             R.invperm.copy_(_index(np.argsort(f.perm), dev))
             R.perm_host = np.array(f.perm)
             moved("h2d", 2 * nbytes(R.perm))
             moved("d2d", 2 * nbytes(R.perm))
-        R.bound.set(f, f.Lx)
+        yield f.Lx[:plan.total]
+        if wave:
+            if f._dinv is None:
+                f._dinv = R.dinv()      # from the panels just copied in
+            yield f._dinv
+
+    R.bound.load("super.solve.bind", f, (f.Lx,), sources)
     return R
 
 

@@ -118,6 +118,52 @@ def fem3d(n: int, seed: int = 0, dtype=np.float64) -> SparseCSC:
     return SparseCSC.from_scipy(sp.csc_matrix(A, dtype=dtype))
 
 
+def cd3d(m: int, p: float = 0.5) -> SparseCSC:
+    """The 7-point first-order upwind convection-diffusion operator on the
+    m^3 grid: the Kronecker sum of tridiag(-(1+p), 2+p, -1) along each
+    axis (cell Peclet number p) -- a symmetric pattern with unsymmetric
+    values, n = m^3."""
+    T = sp.diags([np.full(m - 1, -(1.0 + p)), np.full(m, 2.0 + p),
+                  np.full(m - 1, -1.0)], [-1, 0, 1])
+    eye = sp.identity(m)
+    A = (sp.kron(sp.kron(T, eye), eye) + sp.kron(sp.kron(eye, T), eye)
+         + sp.kron(sp.kron(eye, eye), T))
+    return SparseCSC.from_scipy(sp.csc_matrix(A))
+
+
+def grad3d(k: int) -> sp.csc_matrix:
+    """The forward-difference gradient of the k^3 grid: the Kronecker sum
+    of (k-1) x k difference matrices, 3 (k-1) k^2 x k^3, rank k^3 - 1 (the
+    constants span its null space).  A SciPy matrix."""
+    D = sp.diags([-np.ones(k - 1), np.ones(k - 1)], [0, 1], shape=(k - 1, k))
+    eye = sp.identity(k)
+    return sp.vstack([sp.kron(sp.kron(D, eye), eye),
+                      sp.kron(sp.kron(eye, D), eye),
+                      sp.kron(sp.kron(eye, eye), D)]).tocsc()
+
+
+def grad3d_tik(k: int, mu: float = 2.0) -> SparseCSC:
+    """Tikhonov-damped gradient [G; mu I]: full column rank, sigma_min =
+    mu, sigma_max = sqrt(12 + mu^2)."""
+    G = grad3d(k)
+    return SparseCSC.from_scipy(sp.vstack(
+        [G, mu * sp.identity(G.shape[1])]).tocsc())
+
+
+def ring_chords(n: int, seed: int) -> SparseCSC:
+    """Ring + 3n random chords: connected, ~4 edges a vertex (the JAX
+    package's at-scale algorithm tests)."""
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([np.arange(n), rng.integers(0, n, 3 * n)])
+    dst = np.concatenate([(np.arange(n) + 1) % n, rng.integers(0, n, 3 * n)])
+    keep = src != dst
+    S = sp.csc_matrix((np.ones(keep.sum()), (src[keep], dst[keep])),
+                      shape=(n, n))
+    S.sum_duplicates()
+    S.data[:] = 1.0
+    return SparseCSC.from_scipy(S)
+
+
 def symmetrize_upper(A: SparseCSC) -> SparseCSC:
     """Return upper-triangular symmetric storage of (A+A')/2 + shift."""
     S = A.to_scipy()

@@ -47,14 +47,13 @@ from ..graph import maxtrans
 from ..cholesky.supernodal import SuperSymbolic, super_symbolic
 from ..cholesky.symbolic import Symbolic, analyze
 from ..cholesky.super_numeric import (NumericPlan, _index, _panels,
-                                      _same_array, _set_cols, _sub_rows,
-                                      build_plan, segment_sum,
-                                      sorted_scatter_maps)
+                                      _set_cols, _sub_rows, build_plan,
+                                      segment_sum, sorted_scatter_maps)
 from ..utils.device import (default_dtype, numpy_dtype, resolve_device,
                             torch_dtype)
-from ..utils.programs import (Binding, DeviceProgram, cached_program,
-                              program_device)
-from ..utils.trace import moved, nbytes, span, spanned
+from ..utils.programs import (Binding, DeviceProgram, PatternMap,
+                              cached_program, pattern_map, program_device)
+from ..utils.trace import moved, span, spanned
 
 
 @dataclasses.dataclass
@@ -434,11 +433,11 @@ def _device_maps(S: UmfSymbolic, dev: torch.device) -> dict:
     got = S.plan._cache.get(key)
     if got is None:
         with span("plan.umf_device_maps"):
-            maps = getattr(S, "_a_sorted", None)
+            maps = S.plan._cache.get("umf_a_sorted")
             if maps is None:
-                maps = (sorted_scatter_maps(S.a_scatter_L),
-                        sorted_scatter_maps(S.a_scatter_U))
-                S._a_sorted = maps
+                maps = S.plan._cache["umf_a_sorted"] = (
+                    sorted_scatter_maps(S.a_scatter_L),
+                    sorted_scatter_maps(S.a_scatter_U))
             (srcL, dstL), (srcU, dstU) = maps
             ss = S.ss
             diag = [int(ss.panel_off[s]) + np.arange(ss.panel_shape(s)[1])
@@ -451,51 +450,31 @@ def _device_maps(S: UmfSymbolic, dev: torch.device) -> dict:
 
 
 @dataclasses.dataclass(eq=False)
-class _UmfValueMap:
-    """Where each value of the factored matrix B2 = (A scaled)[a_perm_rows,
-    :][:, a_perm_cols], columns sorted, comes from in ``A.data``, and the
-    orders its scalings read A in -- all of them fixed by the pattern.
+class _UmfScaleOrders:
+    """The orders the scalings read A in, fixed by the pattern: the
+    ``extra`` of the LU value map, whose ``vmap`` says where each value of
+    the factored matrix B2 = (A scaled)[a_perm_rows, :][:, a_perm_cols],
+    columns sorted, comes from in ``A.data``."""
 
-    Made by ``_umf_value_map`` for A's shape, stype, ``indptr`` and
-    ``indices``; ``dev`` holds ``vmap``'s device copies."""
-
-    key: tuple
-    indptr: np.ndarray
-    indices: np.ndarray
-    vmap: np.ndarray            # B2's entries, in the scatter maps' order
     csr_order: np.ndarray       # A's entries row by row (_row_scale's CSR)
     nonempty: np.ndarray        # (nrow,) rows with an entry
     starts: np.ndarray          # their first entries in csr_order
     diag_pos: Optional[np.ndarray]  # (n,) B2's diagonal entries (-1: none)
     b2_col: Optional[np.ndarray]    # (nnz,) B2's column of each A entry
-    dev: dict = dataclasses.field(default_factory=dict)
-
-    def device_vmap(self, dev: torch.device) -> torch.Tensor:
-        got = self.dev.get(dev)
-        if got is None:
-            got = self.dev[dev] = torch.as_tensor(self.vmap, device=dev)
-        return got
 
 
-def _umf_value_map(S: UmfSymbolic, A: SparseCSC) -> _UmfValueMap:
+def _umf_value_map(S: UmfSymbolic, A: SparseCSC) -> PatternMap:
     """The value map of ``A``'s pattern under the symbolic ``S``, kept in
-    ``S.plan._cache``.  A later call reuses it when A's shape, stype,
-    indptr and indices equal those it was made from (the same arrays, or
-    equal ones: each new matrix of the pattern may bring its own), and
-    rebuilds it for another pattern or layout.
+    ``S.plan._cache`` as a ``PatternMap`` (utils/programs) whose ``extra``
+    is a ``_UmfScaleOrders``, reused while A has the pattern it was made
+    from and rebuilt for another pattern or layout.
 
     Made (span ``plan.umf_value_map``) by running the values' chain --
     SciPy's CSR for the row sums, the row and column fancy-indexing, the
     column sort -- on the positions of A's entries, since each step only
     selects and reorders.  Raises SparseError(INVALID) when A's entry
     count is not the symbolic's."""
-    key = (A.shape, A.stype)
-    got = S.plan._cache.get("umf_value_map")
-    if (got is not None and got.key == key
-            and _same_array(got.indptr, A.indptr)
-            and _same_array(got.indices, A.indices)):
-        return got
-    with span("plan.umf_value_map"):
+    def build():
         itype = np.int32 if A.nnz < 2**31 - 1 else np.int64
         # positions from 1: a position 0 would be a stored zero
         pos = SparseCSC(A.indptr, A.indices,
@@ -516,29 +495,29 @@ def _umf_value_map(S: UmfSymbolic, A: SparseCSC) -> _UmfValueMap:
             b2_col = np.empty(A.nnz, dtype=itype)
             b2_col[vmap] = np.repeat(np.arange(S.n, dtype=itype),
                                      np.diff(B2.indptr))
-        got = _UmfValueMap(
-            key=key, indptr=A.indptr, indices=A.indices, vmap=vmap,
+        return vmap, _UmfScaleOrders(
             csr_order=(csr.data - 1).astype(itype), nonempty=nonempty,
             starts=csr.indptr[:-1][nonempty], diag_pos=diag_pos,
             b2_col=b2_col)
-    S.plan._cache["umf_value_map"] = got
-    return got
+
+    return pattern_map(S.plan._cache, "umf_value_map", A, build,
+                       "plan.umf_value_map")
 
 
-def _scaled_values(vm: _UmfValueMap, S: UmfSymbolic, data: np.ndarray,
+def _scaled_values(vo: _UmfScaleOrders, S: UmfSymbolic, data: np.ndarray,
                    indices: np.ndarray, scale: str, dtype):
     """(values, Rs, Cs): A's values scaled on both sides and cast to
     ``dtype``, in A's own order, with their row and column scalings.  Each
-    float operation is the one the SciPy chain that the map stands for
-    makes on the same operands, so ``values[vm.vmap]`` is that chain's B2
+    float operation is the one the SciPy chain that the value map stands
+    for makes on the same operands, so ``values[vmap]`` is that chain's B2
     bit for bit: the row sums are ``klu._row_scale``'s (umfpack default:
     sum scaling, umfpack.h), summed in its CSR order."""
-    nrow = len(vm.nonempty)
+    nrow = len(vo.nonempty)
     Rs = np.ones(nrow)
     if scale != "none" and len(data):
         red = np.maximum.reduceat if scale == "max" else np.add.reduceat
-        Rs[vm.nonempty] = red(np.abs(np.take(data, vm.csr_order)),
-                               vm.starts)
+        Rs[vo.nonempty] = red(np.abs(np.take(data, vo.csr_order)),
+                              vo.starts)
     Rs[Rs == 0.0] = 1.0
     # both scalings multiply the stored values in place, so every stored
     # entry -- explicit zeros included -- keeps its slot in the symbolic's
@@ -548,12 +527,12 @@ def _scaled_values(vm: _UmfValueMap, S: UmfSymbolic, data: np.ndarray,
     # makes every static pivot 1 after two-sided scaling, which keeps the
     # restricted-pivot factorization well-conditioned on hard matrices
     if S.strategy != "symmetric" and scale != "none":
-        has = vm.diag_pos >= 0
+        has = vo.diag_pos >= 0
         diag = np.zeros(S.n, dtype=sc.dtype)
-        diag[has] = np.take(sc, vm.diag_pos[has])
+        diag[has] = np.take(sc, vo.diag_pos[has])
         Cs = np.abs(diag)
         Cs[(Cs == 0) | ~np.isfinite(Cs)] = 1.0
-        sc = sc * np.take(1.0 / Cs, vm.b2_col)
+        sc = sc * np.take(1.0 / Cs, vo.b2_col)
     else:
         Cs = np.ones(S.n)
     return sc.astype(dtype), Rs, Cs
@@ -631,8 +610,8 @@ def umf_numeric(A: SparseCSC, S: UmfSymbolic,
             A = SparseCSC.from_scipy(A.to_scipy())
         vm = _umf_value_map(S, A)
         data = A.data if A.data is not None else np.ones(A.nnz)
-        host, Rs, Cs = _scaled_values(vm, S, data, A.indices, cm.lu.scale,
-                                      dtype)
+        host, Rs, Cs = _scaled_values(vm.extra, S, data, A.indices,
+                                      cm.lu.scale, dtype)
         cm.toc("umf_values")
 
     m = _device_maps(S, dev)
@@ -640,7 +619,7 @@ def umf_numeric(A: SparseCSC, S: UmfSymbolic,
         va = torch.as_tensor(host, device=dev)
         moved("h2d", host.nbytes)
     with span("umf.numeric.gather"):
-        vj = torch.index_select(va, 0, vm.device_vmap(dev))
+        vj = torch.index_select(va, 0, vm.device(dev))
         del va
         moved("d2d", host.nbytes)
     with span("umf.numeric.program"):
@@ -776,10 +755,7 @@ class UmfSolveNumeric:
     Lb: torch.Tensor
     Ub: torch.Tensor
     pivs: tuple
-    bound: Binding = dataclasses.field(default_factory=Binding)
-
-    def holds(self, num: UmfNumeric) -> bool:
-        return self.bound.holds(num, num.Lb, num.Ub)
+    bound: Binding
 
 
 def _umf_solve_numeric(S: UmfSymbolic, dt: torch.dtype,
@@ -788,13 +764,15 @@ def _umf_solve_numeric(S: UmfSymbolic, dt: torch.dtype,
     got = S.plan._cache.get(key)
     if got is None:
         tot = S.plan.total
+        Lb = torch.zeros(tot, dtype=dt, device=dev)
+        Ub = torch.zeros(tot, dtype=dt, device=dev)
         pivs = tuple(tuple(torch.zeros((B, Np), dtype=torch.int64,
                                        device=dev)
                            for (Np, _Mb, _base, B) in lv)
                      for lv in S.plan.meta)
         got = S.plan._cache[key] = UmfSolveNumeric(
-            Lb=torch.zeros(tot, dtype=dt, device=dev),
-            Ub=torch.zeros(tot, dtype=dt, device=dev), pivs=pivs)
+            Lb=Lb, Ub=Ub, pivs=pivs,
+            bound=Binding((Lb, Ub, *(p for lv in pivs for p in lv))))
     return got
 
 
@@ -805,18 +783,10 @@ def bind_umf_numeric(num: UmfNumeric) -> UmfSolveNumeric:
     repeated solves on one numeric copy nothing."""
     S = num.symbolic
     R = _umf_solve_numeric(S, num.Lb.dtype, num.Lb.device)
-    if R.holds(num):
-        return R
-    with span("umf.solve.bind"):
-        R.bound.clear()
-        tot = S.plan.total
-        R.Lb.copy_(num.Lb[:tot])
-        R.Ub.copy_(num.Ub[:tot])
-        for lv_r, lv in zip(R.pivs, num.pivs, strict=True):
-            for p_r, p in zip(lv_r, lv, strict=True):
-                p_r.copy_(p)
-        moved("d2d", nbytes((R.Lb, R.Ub, R.pivs)))
-        R.bound.set(num, num.Lb, num.Ub)
+    tot = S.plan.total
+    R.bound.load("umf.solve.bind", num, (num.Lb, num.Ub),
+                 lambda: (num.Lb[:tot], num.Ub[:tot],
+                          *(p for lv in num.pivs for p in lv)))
     return R
 
 
@@ -862,12 +832,7 @@ def _klu_escalate(num, A, bk, system, cm):
     cached = getattr(num, "_klu_esc", None)
     if cached is None:
         sy = _klu.klu_analyze(A, cm)
-        nu = _klu.klu_factor(A, sy, cm)
-        cached = nu
-        try:
-            num._klu_esc = nu
-        except Exception:
-            pass
+        cached = num._klu_esc = _klu.klu_factor(A, sy, cm)
     x = _klu.klu_solve(cached, bk, transpose=transpose)
     cm.info["umf_escalated"] = True
     return x.reshape(bk.shape)
@@ -974,25 +939,13 @@ def umf_solve(num: UmfNumeric, b: np.ndarray, system: str = "A",
             moved("d2h", out.nbytes)
         return out.astype(host_dt)
 
-    def _lsolve(z):
-        return _run("lsolve", z)
-
-    def _usolve(z):
-        return _run("usolve", z)
-
-    def _ltsolve(z, conj):
-        return _run("ltsolve", z, conj)
-
-    def _utsolve(z, conj):
-        return _run("utsolve", z, conj)
-
     Cs = num.Cs if num.Cs is not None else np.ones(n)
 
     def one_solve(rhs):
         # A = R (PAQ-indexed B C);  Ax=b  <=>  B w = (b/R)[rows],
         # x[cols] = w / C   (B is the two-sided-scaled factored matrix)
         z = (rhs / num.Rs[:, None])[S.a_perm_rows, :]
-        y = _usolve(_lsolve(z))
+        y = _run("usolve", _run("lsolve", z))
         out = np.empty((n, k), dtype=host_dt)
         out[S.a_perm_cols, :] = y / Cs[:, None]
         return out
@@ -1001,7 +954,7 @@ def umf_solve(num: UmfNumeric, b: np.ndarray, system: str = "A",
         # A^{H/T} x = b  <=>  B^{H/T} (P R x) = C^{-1} Q'b; Rs and Cs are
         # real so the scalings need no conjugation
         z = rhs[S.a_perm_cols, :] / Cs[:, None]
-        y = _ltsolve(_utsolve(z, conj), conj)
+        y = _run("ltsolve", _run("utsolve", z, conj), conj)
         out = np.empty((n, k), dtype=host_dt)
         out[S.a_perm_rows, :] = y
         return out / num.Rs[:, None]
@@ -1012,24 +965,24 @@ def umf_solve(num: UmfNumeric, b: np.ndarray, system: str = "A",
         solve_fn = lambda rhs: one_tsolve(rhs, system == "At")
     elif system in ("Pt_L", "L"):
         z = bk[S.a_perm_rows] if system == "Pt_L" else bk
-        x = _lsolve(z)
+        x = _run("lsolve", z)
         return x[:, 0] if one_d else x
     elif system in ("Lt_P", "Lat_P", "Lt", "Lat"):
-        y = _ltsolve(bk, system in ("Lt_P", "Lt"))
+        y = _run("ltsolve", bk, system in ("Lt_P", "Lt"))
         if system.endswith("_P"):
             out = np.empty((n, k), dtype=host_dt)
             out[S.a_perm_rows, :] = y
             y = out
         return y[:, 0] if one_d else y
     elif system in ("U_Qt", "U"):
-        y = _usolve(bk)
+        y = _run("usolve", bk)
         if system == "U_Qt":
             out = np.empty((n, k), dtype=host_dt)
             out[S.a_perm_cols, :] = y
             y = out
         return y[:, 0] if one_d else y
     elif system in ("Ut_Q", "Uat_Q", "Ut", "Uat"):
-        y = _utsolve(bk, system in ("Ut_Q", "Ut"))
+        y = _run("utsolve", bk, system in ("Ut_Q", "Ut"))
         if system.endswith("_Q"):
             # U^{H} (Q x) = b: x = Q^{-1} y (gather through the col perm)
             y = y[S.a_perm_cols]

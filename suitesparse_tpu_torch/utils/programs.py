@@ -52,11 +52,13 @@ import ctypes
 import dataclasses
 import weakref
 
+import numpy as np
 import torch
 
 from .trace import moved, nbytes, span
 
-__all__ = ["Binding", "DeviceProgram", "cached_program", "program_device"]
+__all__ = ["Binding", "DeviceProgram", "PatternMap", "cached_program",
+           "pattern_map", "program_device"]
 
 
 def _tree_map(fn, obj):
@@ -273,14 +275,56 @@ def cached_program(cache: dict, key: tuple, make_body, device,
     return prog
 
 
+@dataclasses.dataclass(eq=False)
+class PatternMap:
+    """Where each value that a plan's programs read comes from in a
+    matrix's ``data`` (``data[vmap]``, in the programs' order) and what
+    else the caller derived from the pattern (``extra``), made once per
+    pattern by ``pattern_map``; ``dev`` holds ``vmap``'s device copies."""
+
+    pattern: tuple              # the matrix's shape, stype, indptr, indices
+    vmap: np.ndarray
+    extra: object = None
+    dev: dict = dataclasses.field(default_factory=dict)
+
+    def fits(self, A) -> bool:
+        """``A`` has the pattern: the same shape and stype, and indptr and
+        indices the same arrays or equal ones (each new matrix of the
+        pattern may bring its own)."""
+        shape, stype, *arrays = self.pattern
+        return (shape, stype) == (A.shape, A.stype) and all(
+            a is b or np.array_equal(a, b)
+            for a, b in zip(arrays, (A.indptr, A.indices)))
+
+    def device(self, dev: torch.device) -> torch.Tensor:
+        """``vmap`` on ``dev``, copied there on first use."""
+        if dev not in self.dev:
+            self.dev[dev] = torch.as_tensor(self.vmap, device=dev)
+        return self.dev[dev]
+
+
+def pattern_map(cache: dict, key: str, A, build, name: str) -> PatternMap:
+    """The map cached under ``key`` in ``cache`` if it fits ``A``, else
+    the one ``build()`` makes (``(vmap, extra)``) in the span ``name``,
+    cached in its place (another pattern or layout)."""
+    got = cache.get(key)
+    if got is None or not got.fits(A):
+        with span(name):
+            got = PatternMap((A.shape, A.stype, A.indptr, A.indices),
+                             *build())
+        cache[key] = got
+    return got
+
+
 @dataclasses.dataclass
 class Binding:
     """Whose values a plan's static buffers hold, when programs read a
-    factor as data (the reference passes it as an argument): a weak
-    reference to the object copied in and the in-place versions of its
-    tensors at the copy, so that the next copy is skipped only for the
-    same object with the same values."""
+    factor as data (the reference passes it as an argument): the buffers
+    (``load`` fills them), a weak reference to the object copied in and
+    the in-place versions of its tensors at the copy, so that the next
+    copy is skipped only for the same object with the same values."""
 
+    buffers: tuple = ()
     owner: object = None
     versions: tuple = ()
 
@@ -294,3 +338,18 @@ class Binding:
 
     def clear(self) -> None:
         self.owner, self.versions = None, ()
+
+    def load(self, name: str, obj, versioned: tuple, sources) -> None:
+        """Copy ``obj`` in unless it is there with the versions of the
+        tensors ``versioned``: in the span ``name``, each tensor that
+        ``sources()`` yields into the buffer of its place, all counted as
+        d2d.  Each is asked for after the one before it is copied, so it
+        may be computed from the buffers already filled."""
+        if self.holds(obj, *versioned):
+            return
+        with span(name):
+            self.clear()
+            for buf, src in zip(self.buffers, sources(), strict=True):
+                buf.copy_(src)
+            moved("d2d", nbytes(self.buffers))
+            self.set(obj, *versioned)

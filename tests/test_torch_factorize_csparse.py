@@ -95,7 +95,7 @@ def test_pattern_symmetric_unsymmetric_values_take_lu():
     values, positive diagonal): the port guesses Cholesky only for a
     Hermitian matrix and solves it by LU; the reference guesses Cholesky
     from the pattern and solves the wrong matrix (its upper triangle's)."""
-    from chip_smoke import cd3d
+    from suitesparse_tpu_torch.io.generators import cd3d
     A = cd3d(5)
     S = A.to_scipy().tocsc()
     Ar, Ap = _pair(S)

@@ -10,14 +10,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (cd3d, host_syncs, omega, one_sync_bfs,
-                        one_sync_pagerank, ring_chords, tree_equal)
+from chip_smoke import (host_syncs, omega, one_sync_bfs, one_sync_pagerank,
+                        tree_equal)
 from suitesparse_tpu_torch.cholesky import (analyze, factorize_super,
                                             residual_norm, solve_super,
                                             super_symbolic)
 from suitesparse_tpu_torch.cholesky import kernels
 from suitesparse_tpu_torch.core.common import default_common
-from suitesparse_tpu_torch.io.generators import laplacian_3d
+from suitesparse_tpu_torch.io.generators import (cd3d, laplacian_3d,
+                                                 ring_chords)
 from suitesparse_tpu_torch.ops import spmv
 
 
@@ -691,7 +692,7 @@ def test_two_factors_share_one_captured_solve_program():
                                        device="cuda"))
             assert np.array_equal(x, want.cpu().numpy()), system
         R = bind_solve_factor(f, cm)
-        assert R.holds(f)
+        assert R.bound.holds(f, f.Lx)
 
 
 @pytest.mark.gpu

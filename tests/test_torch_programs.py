@@ -29,7 +29,7 @@ from suitesparse_tpu.core.common import default_common as ref_common
 from suitesparse_tpu.core.sparse import SparseCSC as RefCSC
 from suitesparse_tpu.io import generators as ref_gen
 
-from chip_smoke import cd3d
+from suitesparse_tpu_torch.io.generators import cd3d
 import suitesparse_tpu_torch.cholesky as port_chol
 import suitesparse_tpu_torch.lu as port_lu
 from suitesparse_tpu_torch.cholesky import super_numeric as port_sn
@@ -239,16 +239,17 @@ def test_two_factors_share_one_solve_program(program):
         got = port_sn.bind_solve_factor(f, cm)
         assert R is None or got is R
         R = got
-        assert R.holds(f) and not R.holds(port_fs[1 - i])
+        assert R.bound.holds(f, f.Lx)
+        assert not R.bound.holds(port_fs[1 - i], port_fs[1 - i].Lx)
         assert torch.equal(R.Lx, f.Lx[:plan.total])
     assert len(progs) == 4
     # a factor's values changed in place are copied in again
     f = port_fs[0]
     port_sn.bind_solve_factor(f, cm)
     f.Lx.mul_(1.0)
-    assert not R.holds(f)
+    assert not R.bound.holds(f, f.Lx)
     port_sn.bind_solve_factor(f, cm)
-    assert R.holds(f)
+    assert R.bound.holds(f, f.Lx)
 
 
 def test_not_posdef_minor_matches_reference():
@@ -346,7 +347,9 @@ def test_two_numerics_share_one_umf_solve_program():
             assert _rel(xp, ref_lu.umf_solve(nr, b, system, refine=0)) \
                 <= LU_TOL
         R = port_mf.bind_umf_numeric(num)
-        assert R.holds(num) and not R.holds(pairs[1 - i][0])
+        other = pairs[1 - i][0]
+        assert R.bound.holds(num, num.Lb, num.Ub)
+        assert not R.bound.holds(other, other.Lb, other.Ub)
         for name in ("lsolve", "usolve", "ltsolve", "utsolve"):
             prog = umf_solve_program(Sp, name, 2, False, torch.float64,
                                      "cpu")
@@ -356,6 +359,15 @@ def test_two_numerics_share_one_umf_solve_program():
                                           num.pivs)(z.clone())
             assert torch.equal(prog(z), own), name
     assert len(progs) == 4
+    # a numeric's values changed in place are copied in again
+    num = pairs[0][0]
+    port_mf.bind_umf_numeric(num)
+    num.Ub.mul_(2.0)
+    assert not R.bound.holds(num, num.Lb, num.Ub)
+    assert not torch.equal(R.Ub, num.Ub[:Sp.plan.total])
+    assert port_mf.bind_umf_numeric(num) is R
+    assert R.bound.holds(num, num.Lb, num.Ub)
+    assert torch.equal(R.Ub, num.Ub[:Sp.plan.total])
 
 
 def _klu_case():

@@ -19,7 +19,7 @@ import suitesparse_tpu.qr as ref_qr
 from suitesparse_tpu.core.common import default_common as ref_common
 from suitesparse_tpu.core.sparse import SparseCSC as RefCSC
 
-from chip_smoke import grad3d as _grad
+from suitesparse_tpu_torch.io.generators import grad3d as _grad
 import suitesparse_tpu_torch.models as port_models
 import suitesparse_tpu_torch.qr as port_qr
 from suitesparse_tpu_torch.core.common import default_common as port_common

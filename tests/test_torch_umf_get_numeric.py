@@ -16,7 +16,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-from chip_smoke import cd3d
+from suitesparse_tpu_torch.io.generators import cd3d
 from suitesparse_tpu_torch import lu
 from suitesparse_tpu_torch.core.common import default_common
 from suitesparse_tpu_torch.core.sparse import SparseCSC

@@ -13,7 +13,6 @@ import torch
 import suitesparse_tpu.lu as ref_lu
 from suitesparse_tpu.core.sparse import SparseCSC as RefCSC
 
-from chip_smoke import cd3d
 from suitesparse_tpu_torch import lu
 from suitesparse_tpu_torch.core.common import default_common
 from suitesparse_tpu_torch.core.sparse import SparseCSC
@@ -47,8 +46,8 @@ def chain(A, S, scale, dtype):
 def _matrix(kind, seed=0):
     """cd3d_6 or a random unsymmetric matrix with new values, every 9th a
     stored zero; "unsorted" reverses each column's entries."""
-    base = cd3d(6) if kind == "cd3d" else generators.random_unsym(
-        150, 0.05, seed=3)
+    base = (generators.cd3d(6) if kind == "cd3d"
+            else generators.random_unsym(150, 0.05, seed=3))
     rng = np.random.default_rng(seed)
     data = base.data * rng.uniform(0.5, 2.0, base.nnz)
     data[::9] = 0.0

@@ -16,7 +16,7 @@ import suitesparse_tpu.lu as ref_lu
 from suitesparse_tpu.core.common import default_common as ref_common
 from suitesparse_tpu.core.sparse import SparseCSC as RefCSC
 
-from chip_smoke import cd3d
+from suitesparse_tpu_torch.io.generators import cd3d
 import suitesparse_tpu_torch.lu as port_lu
 from suitesparse_tpu_torch.core.common import default_common as port_common
 from suitesparse_tpu_torch.core.sparse import SparseCSC as PortCSC
