@@ -126,7 +126,7 @@ PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 # the port's CUDA sources, csrc/<name>.cu
-KERNELS = ("block_chol", "bcsr_spmm", "dispatch_probe")
+KERNELS = ("block_chol", "bcsr_spmm", "dispatch_probe", "pf_extend_add")
 DISPATCH_G = (64, 256)        # grid sizes of the dispatch-floor probes
 # grid sizes they are checked at: chunk counts that are no multiple of the
 # persistent grid, and grids smaller than the SM count
@@ -372,7 +372,10 @@ def phase_kernel_vs_plain():
     """block_chol kernel vs its plain version at every Np it takes (every
     multiple of 8 in 8..128, ragged last panels included), W in
     {1, 4, 37, 512}; then a negative pivot in the first, a middle and the
-    last panel, where the NaN pattern must be the plain version's."""
+    last panel, where the NaN pattern must be the plain version's.  Then
+    the pf extend-add kernel vs its plain version at lap3d_64's pair-class
+    shapes and on every pair instruction of TIMED_MATRIX's plan
+    (tools/bench_extend_add.py)."""
     import torch
     from suitesparse_tpu_torch.cholesky.kernels import (block_chol,
                                                         block_chol_plain)
@@ -421,6 +424,28 @@ def phase_kernel_vs_plain():
     log("[kernel] NaN on a non-positive pivot in the first, a middle and "
         "the last panel, the plain version's pattern: held at every Np "
         "(f64, f32)")
+    # the pf extend-add at lap3d_64's pair-class shapes, bit for bit
+    from suitesparse_tpu_torch.tools import bench_extend_add
+    for shape in bench_extend_add.SHAPES:
+        for dt in (torch.float64, torch.float32):
+            for bf16 in (False, True):
+                bench_extend_add.check(rng, shape, dt, bf16)
+    log(f"[kernel] pf_extend_add vs plain at (Pq, G, Mbc, Npt, Mbt) in "
+        f"{list(bench_extend_add.SHAPES)}, f64 and f32, with and without "
+        f"the bfloat16 placement: bit for bit, repeats too")
+    # and on every pair instruction of the timed matrix's plan, on the
+    # plan's own row maps, offsets and pad parents
+    from suitesparse_tpu_torch.tools.profile_attrib import pf_setup
+    pfp = pf_setup(TIMED_MATRIX, "cuda")[2]
+    for dt in (torch.float64, torch.float32):
+        for bf16 in (False, True):
+            seen = bench_extend_add.check_plan(pfp, dt, bf16)
+    check(seen["g1_slot"] and seen["g1_parents"] and seen["gmany"]
+          and seen["pads"], f"{TIMED_MATRIX}'s plan lacks a kind of pair "
+          f"instruction: {seen}")
+    log(f"[kernel] pf_extend_add vs plain on every pair instruction of "
+        f"{TIMED_MATRIX}'s plan, f64 and f32, with and without the bfloat16 "
+        f"placement: bit for bit ({json.dumps(seen)})")
 
 
 def phase_small_parity():
@@ -660,7 +685,8 @@ def run_matrix(name: str, reps: int):
     each route, the inverted diagonal blocks, the 1- and 32-RHS solves in
     pairs, and float64 refinement."""
     import torch
-    from suitesparse_tpu_torch.cholesky.pf import block_chol_shapes
+    from suitesparse_tpu_torch.cholesky.pf import (block_chol_shapes,
+                                                   extend_add_launches)
     from suitesparse_tpu_torch.cholesky import (analyze, factorize_super,
                                                 residual_norm, solve_super,
                                                 super_symbolic)
@@ -702,9 +728,9 @@ def run_matrix(name: str, reps: int):
     check(prog.graph is not None, f"{name}: the pf program was not captured")
     check(per_factor > 0, f"{name}: block_chol not launched")
     check(per_factor == sum(block_chol_shapes(pfp).values())
-          and prog.per_replay == (per_factor,),
+          and prog.per_replay == (per_factor, extend_add_launches(pfp)),
           f"{name}: launches {per_factor} (per replay {prog.per_replay}) "
-          f"differ from the plan's count")
+          f"differ from the plan's counts")
     vd = prog.static[0].clone()
     cap = program_stats(prog)
     log(f"[{name}] pf program captured: {json.dumps(cap)}; first factor "
@@ -1153,6 +1179,41 @@ def kernel_line(shapes, launches, dev_kind):
                          f"busy_ms and library_ms (torch.linalg.cholesky_ex "
                          f"on the precomputed S + diag(pe)) as device busy "
                          f"time under torch.profiler (gaps left out)")
+
+
+def extend_add_kernel_line(launches, dev_kind):
+    """The pf extend-add over one TIMED_MATRIX factor's pair instructions
+    (tools/bench_extend_add.py): a CUDA graph of the launches replayed
+    between CUDA events, beside its plain version (host clock) and its
+    byte bound; ``launches`` counts its launches on the main path (the
+    Cholesky phases of this process)."""
+    import torch
+    from suitesparse_tpu_torch.tools import bench_extend_add
+    from suitesparse_tpu_torch.tools.profile_attrib import pf_setup
+    check(launches > 0, "main path never launched pf_extend_add")
+    _, _, pfp, _ = pf_setup(TIMED_MATRIX, "cuda")
+    res = bench_extend_add.time_plan(pfp)
+    res.update(bench_extend_add.plan_bound_bytes(pfp))
+    bound = res["bytes"] / PEAK_BYTES * 1e3
+    check(bound <= 1.05 * res["kernel_ms"],
+          f"pf_extend_add above 105% of its bound: {bound:.4f} ms against "
+          f"{res['kernel_ms']:.4f} ms")
+    log(f"[kernel] pf_extend_add per {TIMED_MATRIX} factor "
+        f"({res['launches']} launches): {res['kernel_ms']:.4f} ms (plain "
+        f"{res['plain_ms']:.2f} ms, bound {bound:.4f} ms by bytes) on "
+        f"{dev_kind}")
+    del pfp
+    torch.cuda.empty_cache()
+    return dict(name="pf_extend_add", route="cuda",
+                source="suitesparse_tpu_torch/csrc/pf_extend_add.cu",
+                replaces="none (the one-hot products of "
+                         "suitesparse_tpu/cholesky/pf.py _pair_branch)",
+                launches=launches, ms=res["kernel_ms"],
+                plain_ms=res["plain_ms"], bound_ms=bound, bound_by="bytes",
+                timed_as=f"one {TIMED_MATRIX} factor's pair instructions "
+                         f"in stream order, a CUDA graph replayed "
+                         f"{bench_extend_add.REPS} times between CUDA "
+                         f"events (gaps between launches included)")
 
 
 # -- the sparse-product slice ----------------------------------------------
@@ -2733,7 +2794,9 @@ def main() -> int:
     os.makedirs(PROFILE_DIR, exist_ok=True)
 
     from suitesparse_tpu_torch.cholesky.kernels import block_chol
+    from suitesparse_tpu_torch.cholesky.pf import extend_add
     block_chol.launches = 0            # the main path's count starts here
+    extend_add.launches = 0
     rows = {}
     shapes = {}                        # {matrix: {(W, Np): launches}}
     for name in MATRICES:
@@ -2749,6 +2812,7 @@ def main() -> int:
         f"(bench_extra {bench['extra_s']:.1f} s)")
     shapes[BENCH_MATRIX] = bench["block_chol_shapes"]
     kline = kernel_line(shapes, launches, kind)
+    eline = extend_add_kernel_line(extend_add.launches, kind)
     run_ablate()
     free_device_memory()
     run_probes()
@@ -2823,7 +2887,8 @@ def main() -> int:
     log(f"[time] dist phase done at {time.perf_counter() - t_start:.1f} s")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {smi}")
-    print(json.dumps({"kernels": [kline, bline] + dlines}), flush=True)
+    print(json.dumps({"kernels": [kline, eline, bline] + dlines}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,9 +10,13 @@ the port's plan and panel buffer are interchangeable with the reference's:
     Schur complement goes ONLY to its parent's frame (the multifrontal
     containment theorem, asserted at plan time) and the un-owned part is
     passed upward through the parent's own update;
-  * the child->parent frame placement is patch = Wh U Whᵀ with Wh a
-    one-hot row-placement matrix built on the fly from a static index
-    array, executed as batched products per child group;
+  * the reference places a child's update into its parent's frame as
+    patch = Wh U Whᵀ, Wh a one-hot row-placement matrix built on the fly
+    from a static index array, by batched products per child group.  The
+    port's pair projections (the default grouping) run that placement as
+    ``extend_add``: the hand-written kernel ``csrc/pf_extend_add.cu`` on
+    the card, a gather and a sum over the children, with no product;
+    chunk-grouped projections keep the one-hot products;
   * small-update buckets keep a 1-HOP sorted-segment scatter (into the
     parent frame only) -- chosen per bucket by the reference's cost model,
     whose TPU-calibrated constants are kept so that the plans match.
@@ -25,14 +29,16 @@ relied on dynamic_update_slice aliasing.  ``pf_program`` makes it a device
 program (utils/programs.py): captured once per plan into a CUDA graph and
 replayed for every refactorization on the card.
 
-Phase scopes.  The assembly and each piece of a factor wave and of a pair
-projection run inside a ``torch.profiler.record_function`` range labelled
-as the reference's ``jax.named_scope`` (``Assemble``, ``Fslice8x32``,
-``Qeinsum32g8``, ...), so that ``tools/profile_attrib.py`` can attribute
-the device time of the eager body by phase.  A range is host code only: a
-captured graph holds none of it.  It is entered only while a profiler
-records (``_scope``, ``utils/trace.scope``); otherwise it costs one flag
-test.
+Phase scopes.  The assembly and each piece of a factor wave run inside a
+``torch.profiler.record_function`` range labelled as the reference's
+``jax.named_scope`` (``Assemble``, ``Fslice8x32``, ...), and each pair
+projection's extend-add inside one range named for its class
+(``Qextend32g8``, where the reference has ``Qgather``, ``QplaceW``,
+``QplaceR``, ``Qeinsum`` and ``Qscat``), so that
+``tools/profile_attrib.py`` can attribute the device time of the eager
+body by phase.  A range is host code only: a captured graph holds none
+of it.  It is entered only while a profiler records (``_scope``,
+``utils/trace.scope``); otherwise it costs one flag test.
 
 Update-slot convention: a slot holds the accumulated incoming update in
 LOWER-triangle-canonical form until its supernode factors (the factor
@@ -47,6 +53,7 @@ import torch
 from torch.profiler import record_function
 
 from ..core.sparse import INDEX
+from ..utils import cuda_build
 from ..utils.device import resolve_device, torch_dtype
 from ..utils.programs import DeviceProgram, cached_program
 from ..utils.trace import scope as _scope
@@ -56,7 +63,8 @@ from .super_numeric import (NumericPlan, _device_amaps, _index, _panels,
                             _seg_lengths, assemble, cholesky_or_nan,
                             scatter_add_maps, segment_sum, syrk)
 
-__all__ = ["PFPlan", "block_chol_shapes", "build_pf_plan", "pf_numeric",
+__all__ = ["PFPlan", "block_chol_shapes", "build_pf_plan", "extend_add",
+           "extend_add_launches", "extend_add_plain", "pf_numeric",
            "pf_program"]
 
 # Largest panel column class factored by panel_factor (block_chol on
@@ -79,6 +87,13 @@ def block_chol_shapes(pfp) -> dict:
             bb = min(Np, 128)
             shapes[(W, bb)] = shapes.get((W, bb), 0) + Np // bb
     return shapes
+
+
+def extend_add_launches(pfp) -> int:
+    """Launches of ``extend_add`` in one factor of the plan ``pfp``: one a
+    pair instruction."""
+    return int(np.count_nonzero(
+        pfp.instr_cls >= len(pfp.fmeta) + len(pfp.pmeta)))
 
 
 def _pow2ceil(x: int) -> int:
@@ -156,37 +171,22 @@ def _proj_ops(ops, dev):
                 idxf=_index(ops["idxf"], dev))
 
 
-def _slab_rows(dst, length, buf, dev):
-    """Per instruction, the (rows, offsets) of the slabs that fit in the
-    buffer.  The reference's scatter drops the pad rows, which point far
-    out of bounds (FILL_OR_DROP); torch does not clamp or drop, so they
-    are masked out here, on the host, once."""
-    out = []
-    for d in dst:
-        keep = np.nonzero(d + length <= buf)[0]
-        out.append((_index(keep, dev), _index(d[keep], dev)))
-    return out
-
-
 def _pair_ops(ops, meta, buf, dev):
-    Mbc, G, Pq, Npt, Mbt, pc, uc, spanq = meta
-    out = dict(idxf=_index(ops["idxf"], dev))
-    if spanq:
-        out.update(g0=ops["g0"].tolist(),
-                   gsel=_index(ops["gsel"].reshape(len(ops["gsel"]), -1),
-                               dev))
-    else:
-        out.update(uoff=_index(ops["uoff"], dev))
-    if pc:
-        out.update(pdst0=ops["pdst"][:, 0].tolist())
-    else:
-        out.update(prows=_slab_rows(ops["pdst"], (Npt + Mbt) * Npt, buf,
-                                    dev))
+    """Operands of a pair class's extend-add, stacked per instruction: the
+    frame row maps ``idxf`` (int32), the child slab offsets ``coff`` and
+    the parent panel and update-slot offsets ``pdst`` and ``udst``, -1
+    where the slab lies past the buffer: the plan's pad parents, which the
+    reference's scatter drops (FILL_OR_DROP)."""
+    Mbc, G, Pq, Npt, Mbt = meta[:5]
+
+    def dest(d, length):
+        return _index(np.where(d + length <= buf, d, -1), dev)
+    out = dict(idxf=torch.as_tensor(ops["idxf"], dtype=torch.int32,
+                                    device=dev),
+               coff=_index(ops["uoff"], dev),
+               pdst=dest(ops["pdst"], (Npt + Mbt) * Npt))
     if Mbt:
-        if uc:
-            out.update(udst0=ops["udst"][:, 0].tolist())
-        else:
-            out.update(urows=_slab_rows(ops["udst"], Mbt * Mbt, buf, dev))
+        out["udst"] = dest(ops["udst"], Mbt * Mbt)
     return out
 
 
@@ -822,84 +822,120 @@ def _proj_step(Wc, Mbc, Wp, Npt, Mbt, G):
     return step
 
 
-def _slab_add(Fx, rows, updates):
-    """Add whole (L,)-slabs ``updates[keep]`` into the flat buffer at the
-    kept offsets (sorted, non-overlapping: each entry written once)."""
-    keep, off = rows
+def _slab_add(Fx, dst, updates):
+    """Add the (P, L) slabs ``updates`` into the flat buffer at the offsets
+    ``dst`` (P,), skipping those at -1; the kept slabs do not overlap, so
+    each entry is written once."""
+    keep = dst >= 0
     L = updates.shape[1]
-    idx = (off[:, None] + torch.arange(L, device=Fx.device)).reshape(-1)
-    Fx[idx] += updates[keep].reshape(-1)
+    idx = (dst[keep][:, None] + torch.arange(L, device=Fx.device))
+    Fx[idx.reshape(-1)] += updates[keep].reshape(-1)
+
+
+def extend_add_plain(Fx, idxf, coff, pdst, udst, Mbc: int, Npt: int,
+                     Mbt: int, bf16: bool = False) -> None:
+    """Plain PyTorch ``extend_add``: the same gathers and sums with tensor
+    ops.  Each child slab is gathered by offset and padded with a zero row
+    and column at index Mbc (a frame row the child lacks), its rows and
+    then its columns placed by ``idxf``, and the children summed in the
+    order g = 0, 1, ...; the sum leaves the panel and joins the update
+    slot's lower triangle."""
+    Pq, G, Mft = idxf.shape
+    ix = idxf.long()
+    U = Fx[coff[..., None] + torch.arange(Mbc * Mbc, device=Fx.device)]
+    U = U.view(Pq, G, Mbc, Mbc)
+    if bf16:
+        U = U.to(torch.bfloat16).to(Fx.dtype)
+    R = torch.gather(torch.nn.functional.pad(U, (0, 1, 0, 1)), 2,
+                     ix[..., None].expand(Pq, G, Mft, Mbc + 1))
+
+    def placed(lo, width):
+        # frame rows lo.. by frame columns lo..lo + width, summed over g
+        T = torch.gather(R[:, :, lo:], 3, ix[:, :, None, lo:lo + width]
+                         .expand(Pq, G, Mft - lo, width))
+        S = T[:, 0]
+        for g in range(1, G):
+            S = S + T[:, g]
+        return S
+    _slab_add(Fx, pdst, -placed(0, Npt).reshape(Pq, Mft * Npt))
+    if Mbt:
+        _slab_add(Fx, udst,
+                  torch.tril(placed(Npt, Mbt)).reshape(Pq, Mbt * Mbt))
+
+
+def extend_add(Fx, idxf, coff, pdst, udst, Mbc: int, Npt: int, Mbt: int,
+               bf16: bool = False) -> None:
+    """The extend-add of one pair instruction, in place on the flat buffer
+    ``Fx`` (float32 or float64): for each parent p, over its children g,
+
+        panel[p][f, h] -= sum_g U_g[idxf[p, g, f], idxf[p, g, h]]
+                          (f < Npt + Mbt, h < Npt)
+        slot[p] += the same sum over the below rows, lower triangle only
+
+    U_g the child's (Mbc, Mbc) update slab at ``coff[p, g]``, a frame row
+    with ``idxf`` = Mbc one the child lacks (it adds 0), ``pdst[p]`` and
+    ``udst[p]`` the parent's panel and slot offsets (-1: skipped).  With
+    ``bf16`` each placed value is rounded to bfloat16 before the sum.
+    ``idxf`` is (Pq, G, Npt + Mbt) int32, ``coff`` (Pq, G), ``pdst`` and
+    ``udst`` (Pq,) int64; ``udst`` is None when Mbt is 0.  The offsets are
+    the plan's and are not checked.  A CPU tensor takes the plain version;
+    a CUDA tensor launches the kernel ``csrc/pf_extend_add.cu`` or
+    raises."""
+    if Fx.device.type == "cpu":
+        return extend_add_plain(Fx, idxf, coff, pdst, udst, Mbc, Npt, Mbt,
+                                bf16)
+    if Fx.device.type != "cuda":
+        raise ValueError(f"extend_add: unsupported device {Fx.device}")
+    if Fx.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"extend_add: dtype {Fx.dtype} (float32/float64)")
+    if idxf.dim() != 3 or idxf.shape[2] != Npt + Mbt \
+            or idxf.dtype != torch.int32:
+        raise ValueError(f"extend_add: idxf must be (Pq, G, {Npt + Mbt}) "
+                         f"int32, got {tuple(idxf.shape)} {idxf.dtype}")
+    Pq, G, _ = idxf.shape
+    want = [(coff, (Pq, G)), (pdst, (Pq,))] + ([(udst, (Pq,))] if Mbt
+                                               else [])
+    for t, shape in want:
+        if tuple(t.shape) != shape or t.dtype != torch.int64:
+            raise ValueError(f"extend_add: an offset array must be {shape} "
+                             f"int64, got {tuple(t.shape)} {t.dtype}")
+    for t in [Fx, idxf] + [t for t, _ in want]:
+        if t.device != Fx.device or not t.is_contiguous():
+            raise ValueError("extend_add: operands must be contiguous, on "
+                             "the buffer's device")
+    if Fx.dim() != 1:
+        raise ValueError("extend_add: the buffer must be flat")
+    cuda_build.launch("sstpu_pf_extend_add_f32" if Fx.dtype == torch.float32
+                      else "sstpu_pf_extend_add_f64", Fx, Fx.data_ptr(),
+                      idxf.data_ptr(), coff.data_ptr(), pdst.data_ptr(),
+                      udst.data_ptr() if Mbt else 0, Pq, G, Mbc, Npt, Mbt,
+                      int(bool(bf16)))
+    extend_add.launches += 1
+
+
+# Launches of the kernel: one for each call above, and for each replay of a
+# captured device program the number its capture recorded (a replay makes
+# no Python call; utils/programs.py adds them)
+extend_add.launches = 0
 
 
 def _pair_step(Mbc, G, Pq, Npt, Mbt, pc, uc, spanq, bf16=False):
     """Pair-grouped projection: each parent's children (padded to pow2 G)
-    ride the contraction axis, so the placement patch materializes per
-    parent, (Pq, Mft, Npt).  Children are slab-gathered by offset; patches
-    land by one contiguous read-modify-write when the parent slots are
-    consecutive, else by a slab scatter-add.  The pieces run in ``_scope``s
-    named as the reference's named scopes (``Qgather``,
-    ``QplaceW``, ``QplaceR``, ``Qeinsum``, ``Qscat`` + f"{Mbc}g{G}";
-    with Mbt, ``Qeinsum`` and ``Qscat`` twice, as there).
+    placed into its frame by one ``extend_add``, in the scope
+    ``Qextend`` + f"{Mbc}g{G}".  The plan's gather and destination modes
+    (``spanq``, ``pc``, ``uc``) serve the reference's XLA forms: the
+    kernel reads every child and parent by offset.
 
     bf16: the reference's bfloat16 placement -- the placed update entries
     rounded to bfloat16, then summed over the children in the factor's
-    dtype.  The placement weights are exact 0/1 one-hots, so rounding the
-    placed rows and multiplying in the factor's dtype is that function."""
-    Mft = Npt + Mbt
-    ssz = Mbc * Mbc
-    ga, pw, pr, ei, sc = (f"{k}{Mbc}g{G}" for k in
-                          ("Qgather", "QplaceW", "QplaceR", "Qeinsum",
-                           "Qscat"))
+    dtype (its placement weights are exact 0/1 one-hots)."""
+    name = f"Qextend{Mbc}g{G}"
 
     def step(Fx, pos, ops):
-        dtype = Fx.dtype
-        idxf = ops["idxf"][pos]                          # (Pq, G, Mft)
-        with _scope(ga):
-            if spanq:
-                # streamed span read + large-row take (slab grid)
-                g0 = ops["g0"][pos]
-                slab = Fx[g0:g0 + spanq * ssz].view(spanq, ssz)
-                Uc = slab[ops["gsel"][pos]]
-            else:
-                idx = ops["uoff"][pos][..., None] + torch.arange(
-                    ssz, device=Fx.device)
-                Uc = Fx[idx]
-            Uc = Uc.reshape(Pq, G, Mbc, Mbc)
-        with _scope(pw):
-            mcols = torch.arange(Mbc, device=Fx.device)
-            Wh = (idxf[..., None] == mcols).to(dtype)    # (Pq, G, Mft, Mbc)
-        with _scope(pr):
-            # row placement: a one-hot product for Mbc <= 256, a row
-            # gather (with Mbc as the index of an appended zero row) above
-            if Mbc <= 256:
-                R = Wh @ Uc
-            else:
-                Ucz = torch.cat([Uc, Uc.new_zeros((Pq, G, 1, Mbc))], dim=2)
-                R = torch.gather(Ucz, 2,
-                                 idxf[..., None].expand(Pq, G, Mft, Mbc))
-            if bf16:
-                R = R.to(torch.bfloat16).to(dtype)
-        with _scope(ei):
-            S = torch.einsum("pgfm,pghm->pfh", R, Wh[:, :, :Npt, :])
-        with _scope(sc):
-            if pc:
-                # contiguous parent slots: ONE read-modify-write; pad rows
-                # continue the run and subtract exact zeros
-                p0 = ops["pdst0"][pos]
-                Fx[p0:p0 + Pq * Mft * Npt] -= S.reshape(-1)
-            else:
-                _slab_add(Fx, ops["prows"][pos], -S.reshape(Pq, Mft * Npt))
-        if Mbt:
-            with _scope(ei):
-                St = torch.tril(torch.einsum(
-                    "pgfm,pghm->pfh", R[:, :, Npt:, :], Wh[:, :, Npt:, :]))
-            with _scope(sc):
-                if uc:
-                    u0 = ops["udst0"][pos]
-                    Fx[u0:u0 + Pq * Mbt * Mbt] += St.reshape(-1)
-                else:
-                    _slab_add(Fx, ops["urows"][pos],
-                              St.reshape(Pq, Mbt * Mbt))
+        with _scope(name):
+            extend_add(Fx, ops["idxf"][pos], ops["coff"][pos],
+                       ops["pdst"][pos], ops["udst"][pos] if Mbt else None,
+                       Mbc, Npt, Mbt, bf16)
     return step
 
 
@@ -940,7 +976,7 @@ def pf_program(pfp: PFPlan, dtype, syrk_bf16=False, trsm_inv=True,
 
     return cached_program(pfp._cache, ("pf", dt, bool(syrk_bf16),
                                        bool(trsm_inv), dev), make, dev,
-                          counters=(block_chol,))
+                          counters=(block_chol, extend_add))
 
 
 def pf_numeric(vals, pfp: PFPlan, dtype, syrk_bf16=False, device=None,

@@ -6,9 +6,10 @@ counterpart of tools/ablate_pf.py.
 builds the matrix's pf plan once (default lap3d_28) and captures each
 variant as a device program over the same plan:
 
-  full      ``pf_program`` itself; the tool's copies of
-            ``pf._factor_step`` and ``pf._pair_step`` with nothing removed
-            are checked against it bit for bit and node for node, once
+  full      ``pf_program`` itself; the tool's copy of
+            ``pf._factor_step`` with nothing removed, beside
+            ``pf._pair_step``, is checked against it bit for bit and node
+            for node, once
   noproj    the projection and pair instructions dropped (factor waves
             only)
   nosyrk    factor waves: POTRF + TRSM and the panel write only (no SYRK,
@@ -27,6 +28,12 @@ full are numerically WRONG: this is a timing tool.  The reference's
 ``u-`` and scan forms have no counterpart: the port has one straight-line
 program.  Runs on the card unless ``device="cpu"`` is asked for, where the
 bodies run eagerly and the times are host times of the CPU.
+
+The q variants cut the staged chain that placed the pair projections
+before the extend-add kernel (``pf.extend_add``), as the reference still
+does: a slab gather, a one-hot ``Wh``, the row placement and the
+contractions against it; they show what each stage of that chain costs.
+Every other variant runs ``pf._pair_step`` as ``pf_program`` does.
 """
 from __future__ import annotations
 
@@ -37,9 +44,11 @@ import numpy as np
 import torch
 
 from ..cholesky.kernels import block_chol, panel_factor
-from ..cholesky.pf import _POTRF_MAXNP, _slab_add, pf_program
-from ..cholesky.super_numeric import (_device_amaps, _panels, assemble,
-                                      cholesky_or_nan, segment_sum, syrk)
+from ..cholesky.pf import (_POTRF_MAXNP, _pair_ops, _pair_step, extend_add,
+                           pf_program)
+from ..cholesky.super_numeric import (_device_amaps, _index, _panels,
+                                      assemble, cholesky_or_nan, segment_sum,
+                                      syrk)
 from ..utils.device import resolve_device, torch_dtype
 from ..utils.programs import DeviceProgram
 from .profile_attrib import pf_setup
@@ -97,10 +106,23 @@ def _factor_step(variant, Np, Mb, W, mode, L, K):
     return step
 
 
-def _pair_step(variant, Mbc, G, Pq, Npt, Mbt, pc, uc, spanq):
-    """``pf._pair_step`` (no bf16 placement) cut after the stage
-    ``variant`` names (qgather0, qgather1, qeinsum); a cut stage adds one
-    value of what it computed into Fx[0], as the reference's does."""
+def _chain_ops(ops, meta, buf, dev):
+    """The staged chain's operands of a pair class: ``pf._pair_ops``'s,
+    with the frame row maps as int64 (torch gathers with int64 only), and
+    the span gather's start and slab selection where the plan has them."""
+    out = dict(_pair_ops(ops, meta, buf, dev), idxf=_index(ops["idxf"], dev))
+    if meta[7]:
+        out.update(g0=ops["g0"].tolist(),
+                   gsel=_index(ops["gsel"].reshape(len(ops["gsel"]), -1),
+                               dev))
+    return out
+
+
+def _chain_step(variant, Mbc, G, Pq, Npt, Mbt, pc, uc, spanq):
+    """The staged chain of a pair projection (no bf16 placement) cut after
+    the stage ``variant`` names (qgather0, qgather1, qeinsum); a cut stage
+    adds one value of what it computed into Fx[0], as the reference's
+    does."""
     Mft = Npt + Mbt
     ssz = Mbc * Mbc
 
@@ -110,7 +132,7 @@ def _pair_step(variant, Mbc, G, Pq, Npt, Mbt, pc, uc, spanq):
             g0 = ops["g0"][pos]
             Uc = Fx[g0:g0 + spanq * ssz].view(spanq, ssz)[ops["gsel"][pos]]
         else:
-            Uc = Fx[ops["uoff"][pos][..., None]
+            Uc = Fx[ops["coff"][pos][..., None]
                     + torch.arange(ssz, device=Fx.device)]
         Uc = Uc.reshape(Pq, G, Mbc, Mbc)
         if variant == "qgather0":
@@ -129,20 +151,7 @@ def _pair_step(variant, Mbc, G, Pq, Npt, Mbt, pc, uc, spanq):
         S = torch.einsum("pgfm,pghm->pfh", R, Wh[:, :, :Npt, :])
         St = (torch.tril(torch.einsum("pgfm,pghm->pfh", R[:, :, Npt:, :],
                                       Wh[:, :, Npt:, :])) if Mbt else None)
-        if variant == "qeinsum":
-            Fx[:1] += S[:, 0, 0].sum() + (St[:, 0, 0].sum() if Mbt else 0.0)
-            return
-        if pc:
-            p0 = ops["pdst0"][pos]
-            Fx[p0:p0 + Pq * Mft * Npt] -= S.reshape(-1)
-        else:
-            _slab_add(Fx, ops["prows"][pos], -S.reshape(Pq, Mft * Npt))
-        if Mbt:
-            if uc:
-                u0 = ops["udst0"][pos]
-                Fx[u0:u0 + Pq * Mbt * Mbt] += St.reshape(-1)
-            else:
-                _slab_add(Fx, ops["urows"][pos], St.reshape(Pq, Mbt * Mbt))
+        Fx[:1] += S[:, 0, 0].sum() + (St[:, 0, 0].sum() if Mbt else 0.0)
     return step
 
 
@@ -168,7 +177,12 @@ def variant_program(pfp, variant: str, dtype, device) -> DeviceProgram:
     dt = torch_dtype(dtype)
     fops, _, qops = pfp.arrays(dt, dev)
     steps = [(_factor_step(variant, *m), o) for o, m in zip(fops, pfp.fmeta)]
-    steps += [(_pair_step(variant, *m), o) for o, m in zip(qops, pfp.qmeta)]
+    if variant.startswith("q"):
+        steps += [(_chain_step(variant, *m),
+                   _chain_ops(o, m, pfp.buf, dev))
+                  for o, m in zip(pfp.qops, pfp.qmeta)]
+    else:
+        steps += [(_pair_step(*m), o) for o, m in zip(qops, pfp.qmeta)]
     stream = [steps[c] + (p,) for c, p in instructions(pfp, variant)]
     a_src, a_dst = _device_amaps(pfp._cache, pfp.plan.ss, dev)
 
@@ -178,7 +192,7 @@ def variant_program(pfp, variant: str, dtype, device) -> DeviceProgram:
             step(Fx, pos, ops)
         return Fx
     return DeviceProgram(f"ablate_{variant}", ("ablate", variant, dt, dev),
-                         body, dev, counters=(block_chol,))
+                         body, dev, counters=(block_chol, extend_add))
 
 
 def _timed(fn, dev) -> float:

@@ -12,8 +12,10 @@ Sections (default: all), each on the port's own form of the operation:
   scatter   the sorted, unique, non-atomic ``Fx[dst] += v`` of the factor
             step, 1M and 8M entries into 32M
   segsum    the port's ``segment_sum`` (sorted runs), 32M into 8M
-  project   ``_pair_step``'s placement: a one-hot product (a row gather
-            above 256 columns) and the patch contraction
+  project   the one-hot placement of a pair projection: a one-hot
+            product (a row gather above 256 columns) and the patch
+            contraction, as the reference runs it (the port's pair step
+            runs the extend-add kernel, tools/bench_extend_add.py)
   chol      batched POTRF (``cholesky_ex``), TRSM (``solve_triangular``)
             and SYRK (``super_numeric.syrk``)
 

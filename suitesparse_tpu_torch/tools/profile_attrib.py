@@ -7,11 +7,13 @@ Builds the matrix's pf plan (default lap3d_28; ``detail`` adds the top 30
 scopes and the top unattributed kernels), captures its ``pf_program``,
 warms up, then profiles one run of the program's eager body under
 ``torch.profiler`` (CPU + CUDA).  ``cholesky/pf.py`` runs each piece of a
-factor wave and of a pair projection, and the assembly, in a
-``record_function`` range labelled as the reference's named scopes
-(``Fslice``, ``Fpotrf``, ``Fsyrk``, ``Fwrite``, ``Fscat`` per factor
-class; ``Qgather``, ``QplaceW``, ``QplaceR``, ``Qeinsum``, ``Qscat`` per
-pair class; ``Assemble``).  Ranges exist only where kernels are launched
+factor wave, and the assembly, in a ``record_function`` range labelled as
+the reference's named scopes (``Fslice``, ``Fpotrf``, ``Fsyrk``,
+``Fwrite``, ``Fscat`` per factor class; ``Assemble``), and each pair
+projection in one range ``Qextend`` per pair class, around its extend-add
+kernel (the reference's ``Qgather``, ``QplaceW``, ``QplaceR``,
+``Qeinsum`` and ``Qscat``, which the pattern still reads in a trace of an
+older tree).  Ranges exist only where kernels are launched
 from the host, so the attribution is taken on the eager body; a replay of
 the captured graph is then profiled in the same call for its device busy
 time and kernel count, printed beside the eager run's.
@@ -57,11 +59,11 @@ __all__ = ["KERNEL_GROUPS", "SCOPE_RE", "attribute", "attribute_pf",
            "busy_us", "idle_by_range", "kernel_group", "pf_setup",
            "phase_of", "scope_of", "summarize", "trace_events"]
 
-# the reference's scope pattern (tools/profile_attrib.py:57-59), applied to
-# "/" + a range's name
+# the reference's scope pattern (tools/profile_attrib.py:57-59) and the
+# port's Qextend, applied to "/" + a range's name
 SCOPE_RE = re.compile(
-    r"/((?:F(?:slice|potrf|syrk|write|scat)|Q(?:gather|place|einsum|scat)|"
-    r"Assemble)[\w]*)")
+    r"/((?:F(?:slice|potrf|syrk|write|scat)|"
+    r"Q(?:gather|place|einsum|scat|extend)|Assemble)[\w]*)")
 UNATTRIBUTED = "(unattributed)"
 NO_RANGE = "(no range)"
 # kernel-name fragments of each device-time group, first match wins

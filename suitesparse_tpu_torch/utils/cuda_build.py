@@ -39,6 +39,8 @@ ENTRY_POINTS = {
     "sstpu_block_chol_f32": ("block_chol", "pppii"),
     "sstpu_block_chol_f64": ("block_chol", "pppii"),
     "sstpu_bcsr_spmm_f32": ("bcsr_spmm", "ppppiiiii"),
+    "sstpu_pf_extend_add_f32": ("pf_extend_add", "pppppiiiiii"),
+    "sstpu_pf_extend_add_f64": ("pf_extend_add", "pppppiiiiii"),
     "sstpu_scale_blocks_f32": ("dispatch_probe", "ppi"),
     "sstpu_scale_gather_f32": ("dispatch_probe", "pppii"),
 }

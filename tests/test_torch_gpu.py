@@ -963,3 +963,110 @@ def test_bench_gemm_roofline_is_held_under_the_peak(monkeypatch):
     monkeypatch.setattr(bench.time, "perf_counter", lambda: next(clock))
     with pytest.raises(RuntimeError, match="peak"):
         bench.measure_gemm_roofline(torch.float32, dev, 1024)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(1, 1, 3840, 7936, 0),
+                                   (1, 1, 2816, 1024, 3840),
+                                   (4, 1, 2048, 512, 2560),
+                                   (1, 2, 2560, 768, 3584),
+                                   (8, 16, 32, 128, 128),
+                                   (3, 40, 16, 72, 56)])
+def test_extend_add_kernel_matches_plain(shape, dtype):
+    """The extend-add kernel against its plain version at lap3d_64's pair
+    class shapes (Pq, G, Mbc, Npt, Mbt): the largest G = 1 class, a G = 1
+    class with an update slot and one with four parents, the largest
+    G = 2 one and a G = 16 one, and 40 children on a frame no multiple of
+    the tile; with pad children, a dropped slot and panel, and each child
+    reaching a random half or more of the frame; bit for bit, a repeat
+    too, with and without the bfloat16 placement."""
+    _need_card()
+    from suitesparse_tpu_torch.tools import bench_extend_add
+    rng = np.random.default_rng(sum(shape))
+    for bf16 in (False, True):
+        got = bench_extend_add.check(rng, shape, dtype, bf16)
+        assert got["moved"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_extend_add_kernel_matches_plain_on_a_plan(dtype):
+    """lap3d_28's pf plan: the kernel against its plain version on every
+    pair instruction, on the plan's own row maps, offsets and pad parents
+    (G = 1 with an update slot and with several parents, G > 1, pad
+    parents all among them), bit for bit after each, with and without the
+    bfloat16 placement."""
+    _need_card()
+    from suitesparse_tpu_torch.cholesky import pf
+    from suitesparse_tpu_torch.tools import bench_extend_add
+    pfp, _ = _pf_on_card(28)
+    for bf16 in (False, True):
+        seen = bench_extend_add.check_plan(pfp, dtype, bf16)
+        assert seen["instructions"] == pf.extend_add_launches(pfp)
+        assert min(seen["g1_slot"], seen["g1_parents"], seen["gmany"],
+                   seen["pads"]) > 0
+
+
+@pytest.mark.gpu
+def test_extend_add_launches_per_replay_without_syncs():
+    """lap3d_16's pf program captured and replayed under
+    torch.cuda.set_sync_debug_mode("error"): each replay launches the
+    extend-add kernel once a pair instruction of the plan (and block_chol
+    its count), the replays and the eager body are bit-identical, and the
+    factor equals the CPU's float64 one to float32 rounding."""
+    _need_card()
+    from suitesparse_tpu_torch.cholesky import pf
+    pfp, vals = _pf_on_card(16)
+    want = pf.extend_add_launches(pfp)
+    assert want == 25
+    prog = pf.pf_program(pfp, np.float32, device="cuda")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = prog(vals)
+        before = pf.extend_add.launches
+        again = prog(vals)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert pf.extend_add.launches - before == want
+    assert prog.per_replay == (sum(pf.block_chol_shapes(pfp).values()),
+                               want)
+    assert torch.equal(got, again) and torch.equal(prog.eager(vals), got)
+    ref = pf.pf_numeric(vals.double().cpu(), pfp, np.float64, device="cpu")
+    t = pfp.plan.total
+    err = float((got[:t].double().cpu() - ref[:t]).abs().max()
+                / ref[:t].abs().max())
+    assert err <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_not_posdef_minor_on_the_card_is_the_cpus(dtype):
+    """laplacian_3d(12) with A[150, 150] = -3 through the pf program: the
+    leaf supernode that holds it fails and its NaN reaches its ancestors
+    through pair instructions.  NOT_POSDEF on the card with the minor of
+    the CPU's float64 run, and the same supernodes holding a NaN."""
+    _need_card()
+    import scipy.sparse as sp
+    from suitesparse_tpu_torch.core.sparse import SparseCSC
+    from suitesparse_tpu_torch.core.status import Status
+    S = sp.lil_matrix(laplacian_3d(12).to_scipy())
+    S[150, 150] = -3.0
+    S = sp.csc_matrix(S)
+    S.sort_indices()
+    A = SparseCSC.from_scipy(S)
+    got = []
+    for dev, dt in (("cpu", np.float64), ("cuda", dtype)):
+        cm = default_common()
+        cm.cholesky.supernodal = "supernodal"
+        cm.cholesky.program = "pf"
+        sym = analyze(A, cm)
+        ss = super_symbolic(A, sym, cm)
+        f = factorize_super(A, sym, ss, common=cm, dtype=dt, device=dev)
+        assert cm.status == Status.NOT_POSDEF and not f.ok
+        Lx = f.Lx.cpu().numpy()
+        nan = [s for s in range(ss.nsuper) if np.isnan(Lx[
+            int(ss.panel_off[s]):int(ss.panel_off[s])
+            + int(ss.panel_Mp[s]) * int(ss.panel_Np[s])]).any()]
+        got.append((f.minor, nan))
+    assert got[0] == got[1] and len(got[0][1]) > 2

@@ -78,6 +78,7 @@ import suitesparse_tpu_torch.qr.spqr
 import suitesparse_tpu_torch.tools
 import suitesparse_tpu_torch.tools.ablate_pf
 import suitesparse_tpu_torch.tools.bench_bcsr
+import suitesparse_tpu_torch.tools.bench_extend_add
 import suitesparse_tpu_torch.tools.diag_residual
 import suitesparse_tpu_torch.tools.dist_scaling
 import suitesparse_tpu_torch.tools.klu_host

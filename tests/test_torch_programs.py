@@ -34,7 +34,7 @@ import suitesparse_tpu_torch.cholesky as port_chol
 import suitesparse_tpu_torch.lu as port_lu
 from suitesparse_tpu_torch.cholesky import super_numeric as port_sn
 from suitesparse_tpu_torch.cholesky.kernels import block_chol
-from suitesparse_tpu_torch.cholesky.pf import pf_program
+from suitesparse_tpu_torch.cholesky.pf import extend_add, pf_program
 from suitesparse_tpu_torch.core.common import default_common as port_common
 from suitesparse_tpu_torch.core.sparse import SparseCSC as PortCSC
 from suitesparse_tpu_torch.core.status import Status
@@ -139,7 +139,7 @@ def test_one_program_per_key():
     pfp = plan.pf_plan(cm)
     base = pf_program(pfp, np.float64, device="cpu")
     assert pf_program(pfp, np.float64, device="cpu") is base
-    assert base.counters == (block_chol,)
+    assert base.counters == (block_chol, extend_add)
     others = [pf_program(pfp, np.float32, device="cpu"),
               pf_program(pfp, np.float64, syrk_bf16=True, device="cpu"),
               pf_program(pfp, np.float64, trsm_inv=False, device="cpu")]
