@@ -2332,8 +2332,8 @@ def run_qr_cell(name, A, oracle, limit) -> dict:
     """qr_symbolic, a first qr_factorize on the card, QR_REPS refactors
     (bit-identical R), one profiled, then the least-squares solve split
     into the factorization with Q'b (twice: bit-identical R and Q'b) and
-    the host R solve; rank and tol beside the float64 host factor's; the
-    solution within ``limit`` of the float64 ``oracle``."""
+    the R solve on the card; rank and tol beside the float64 host
+    factor's; the solution within ``limit`` of the float64 ``oracle``."""
     import torch
     from suitesparse_tpu_torch.cholesky import residual_norm
     from suitesparse_tpu_torch.core.common import default_common
@@ -2405,7 +2405,7 @@ def run_qr_cell(name, A, oracle, limit) -> dict:
                 device_busy_ms=prof["device_busy_ms"],
                 idle_share=prof["idle_share"], kernels=prof["kernels"],
                 group_ms=prof["group_ms"],
-                factor_with_qtb_s=[t_fb, t_fb2], host_rsolve_s=t_rs,
+                factor_with_qtb_s=[t_fb, t_fb2], rsolve_s=t_rs,
                 qtb_device_busy_ms=prof_b["device_busy_ms"],
                 qtb_kernels=prof_b["kernels"], qtb_group_ms=prof_b["group_ms"],
                 peak_mem_gib=peak, rank=num.rank, tol=num.tol,

@@ -8,19 +8,23 @@ rank detection with tol = 20*(m+n)*eps*max column 2-norm
 (SuiteSparseQR_definitions.h:28, spqr_tol.cpp); least-squares solve via
 Q'b carried through the factorization + R backsolve (SuiteSparseQR<Entry>).
 
-The host side -- the analysis, the padded shape buckets of each
-elimination-tree level, the static staircase-assembly maps, the Q'X output
-layout and the per-supernode R solves -- is the reference's, copied, so
-the symbolic objects are identical.  The level loop is plain PyTorch on an
-explicit device: one batched torch.linalg.qr per bucket (LAPACK on the
-CPU, cuSOLVER/MAGMA on the card), every assembly and output scatter a
-non-atomic indexed write through the cached sorted, unique maps, so two
-refactorizations on the card are bit-identical.  Two differences from the
-reference, with the same results: Q'b's top rows stay on the device and
-are copied to the host once, and R's diagonal is gathered through one
-precomputed index vector instead of copying the whole R buffer.  When
-neither b nor keep_q is asked, Q is not formed (mode="r": the same geqrf
-R as the reduced mode).
+The host analysis -- the padded shape buckets of each elimination-tree
+level, the static staircase-assembly maps and the Q'X output layout -- is
+the reference's, built with NumPy a supernode, a bucket or a level at a
+time, so the symbolic objects are identical.  The numeric phase is one
+device program (``qr_program``, a captured CUDA graph on the card) over
+the values put in the factored order by a map made once per pattern
+(``_qr_value_map``): per bucket one batched ``torch.geqrf`` and, with a
+right-hand side, one ``torch.ormqr`` that applies the fronts' Householder
+reflectors to it, as SPQR does (no Q is formed); every assembly and
+output scatter is a non-atomic indexed write through sorted, unique maps,
+so two refactorizations on the card are bit-identical.  The fronts are
+factored in float64 (complex128) whatever R's dtype, and a float32 R is
+rounded once as each front writes it (``front_dtype``).  ``keep_q`` also
+keeps each front's complete Q on the host (``qr_qmult``).  R x = c runs on
+the device through the Cholesky solve program's back substitution
+(``super_numeric.solve_program``, system "Lt"): R's panels hold R^T in the
+layout of the Cholesky factor's panels.
 """
 from __future__ import annotations
 
@@ -35,9 +39,14 @@ from ..core.sparse import INDEX, SparseCSC, SYM_UPPER
 from ..core.status import SparseError, Status
 from ..cholesky.supernodal import SuperSymbolic, super_symbolic, _pad_dim
 from ..cholesky.symbolic import Symbolic, analyze
-from ..cholesky.super_numeric import _index, sorted_scatter_maps
+from ..cholesky.super_numeric import (NumericPlan, _index, _solve_factor,
+                                      build_plan, solve_program,
+                                      sorted_scatter_maps)
 from ..utils.device import (default_dtype, numpy_dtype, resolve_device,
                             torch_dtype)
+from ..utils.programs import (DeviceProgram, PatternMap, cached_program,
+                              pattern_map, program_device)
+from ..utils.trace import moved, span, spanned
 
 
 def _sorted_pair(bq, key: str, src: np.ndarray, dst: np.ndarray):
@@ -65,8 +74,35 @@ def _sorted_drop(bq, key: str, dst: np.ndarray, trash: int):
     return maps
 
 
+def _ragged(counts) -> tuple[np.ndarray, np.ndarray]:
+    """(segment, position) of each element of consecutive segments of
+    ``counts[k]`` elements each."""
+    counts = np.asarray(counts, dtype=np.int64)
+    seg = np.repeat(np.arange(len(counts), dtype=np.int64), counts)
+    starts = np.cumsum(counts) - counts
+    return seg, np.arange(len(seg), dtype=np.int64) - starts[seg]
+
+
+def _runs(counts: torch.Tensor):
+    """(run, position) of each element of consecutive runs of
+    ``counts[k]`` elements each, on the device of ``counts``."""
+    n = int(counts.sum())
+    seg = torch.repeat_interleave(
+        torch.arange(len(counts), device=counts.device), counts,
+        output_size=n)
+    start = torch.cumsum(counts, 0) - counts
+    return seg, torch.arange(n, device=counts.device) - start[seg]
+
+
 @dataclasses.dataclass
 class _QRBucket:
+    """One (level, shape) bucket of fronts.  The small maps are arrays;
+    the large ones -- the C-block assembly (``c_src``/``c_dst``) and the
+    padded output maps ``r_dst`` and ``c_out_dst`` -- are kept as runs of
+    consecutive entries (``_c_runs``, ``_r_runs``, ``_cout_runs``) and
+    expanded on demand: on the device by ``_device_plan``, on the host by
+    the properties."""
+
     sids: np.ndarray
     FR: int                   # padded front rows
     FC: int                   # padded front cols
@@ -74,28 +110,99 @@ class _QRBucket:
     # assembly maps (flat indices into the level workspace of this bucket)
     a_src: np.ndarray         # indices into the A-value vector
     a_dst: np.ndarray         # -> workspace flat positions
-    c_src: np.ndarray         # indices into the C buffer
-    c_dst: np.ndarray
     b_rows: np.ndarray        # (B, FR) original A-row id carried into front
                               # rows (for stacking B), -1 = child/pad row
     c_brow_src: np.ndarray    # C carried-B buffer sources (flat)
     c_brow_dst: np.ndarray    # -> (b, front_row) flattened positions
     # outputs
-    r_dst: np.ndarray         # (B, FC, Np): workspace R rows -> R panel flat
-    c_out_dst: np.ndarray     # (B, FR, FC): C-block rows -> C buffer flat
     cb_out_dst: np.ndarray    # (B, FR): C-rows -> carried-B buffer row (+1-based? -1 pad)
     colidx: np.ndarray        # (B, Np) global pivotal columns (n = pad)
     rowidx: np.ndarray        # (B, FCmNp) global beyond cols (n = pad)
     ns: np.ndarray            # (B,) true pivotal widths
     fr: np.ndarray            # (B,) true front row counts
+    # runs: per child C row (C-buffer start, workspace row start, width,
+    # start of the child's columns in the parent in kid_col); per front
+    # and R column k (front, k, rows t, panel start); per front and C row
+    # (front, row, width, C-buffer start); the children in assembly order
+    _c_runs: tuple = None
+    _r_runs: tuple = None
+    _cout_runs: tuple = None
+    _kids: np.ndarray = None
+    _kid_col: np.ndarray = None     # the symbolic's, shared
+    _r_trash: int = 0
+    _c_trash: int = 0
     # cached sorted scatter maps (built lazily by _sorted_pair/_sorted_drop;
     # declared so slots=True/frozen variants would not silently break them)
     _a_maps: tuple = None
     _c_maps: tuple = None
     _cb_maps: tuple = None
-    _r_maps: tuple = None
-    _cout_maps: tuple = None
     _cbout_maps: tuple = None
+
+    def c_map(self, dev, kid_col: torch.Tensor) -> tuple:
+        """(C-buffer position, workspace position) of each C-block entry
+        assembled here, in assembly order (destinations ascending)."""
+        start, wrow, width, col = (torch.as_tensor(a, device=dev)
+                                   for a in self._c_runs)
+        seg, k = _runs(width)
+        return start[seg] + k, wrow[seg] + kid_col[col[seg] + k]
+
+    def r_map(self, dev, stride: int) -> tuple:
+        """(position in the fronts' R, panel position) of each R entry,
+        panel positions ascending: R[b, t, k] read at (b FC + k) stride +
+        t (stride Np: r_dst's padded layout; FR: geqrf's column-major
+        output)."""
+        b, k, rows, pstart = (torch.as_tensor(a, device=dev)
+                              for a in self._r_runs)
+        seg, t = _runs(rows)
+        return (b[seg] * self.FC + k[seg]) * stride + t, pstart[seg] + t
+
+    def cout_map(self, dev, upper: bool = False, off=None) -> tuple:
+        """(position in the fronts' R, C-buffer position) of each C-block
+        entry a front writes: the whole block in c_out_dst's padded
+        (B, FR, FC) layout, or with ``upper`` only the entries on and above
+        R's diagonal, read in geqrf's column-major output and written at
+        the fronts' starts ``off`` (a C buffer in another order)."""
+        b, rr, width, start = (torch.as_tensor(a, device=dev)
+                               for a in self._cout_runs)
+        ns = torch.as_tensor(self.ns, device=dev)[b]
+        if off is not None:
+            start = torch.as_tensor(off, device=dev)
+        lo = rr if upper else torch.zeros_like(rr)
+        seg, j = _runs((width - lo).clamp_min(0))
+        k = lo[seg] + j
+        b, rr, ns = b[seg], rr[seg], ns[seg]
+        dst = start[seg] + rr * width[seg] + k
+        if upper:
+            return (b * self.FC + ns + k) * self.FR + ns + rr, dst
+        return (b * self.FR + ns + rr) * self.FC + ns + k, dst
+
+    @property
+    def c_src(self) -> np.ndarray:
+        """C-block entries' C-buffer positions (assembly order)."""
+        return self.c_map("cpu", torch.as_tensor(self._kid_col))[0].numpy()
+
+    @property
+    def c_dst(self) -> np.ndarray:
+        """C-block entries' workspace positions (assembly order)."""
+        return self.c_map("cpu", torch.as_tensor(self._kid_col))[1].numpy()
+
+    @property
+    def r_dst(self) -> np.ndarray:
+        """(B, FC, Np): workspace R rows -> R panel flat (trash: pad)."""
+        out = np.full((len(self.sids), self.FC, self.Np), self._r_trash,
+                      dtype=INDEX)
+        src, dst = self.r_map("cpu", self.Np)
+        out.reshape(-1)[src.numpy()] = dst.numpy()
+        return out
+
+    @property
+    def c_out_dst(self) -> np.ndarray:
+        """(B, FR, FC): C-block rows -> C buffer flat (trash: pad)."""
+        out = np.full((len(self.sids), self.FR, self.FC), self._c_trash,
+                      dtype=INDEX)
+        src, dst = self.cout_map("cpu")
+        out.reshape(-1)[src.numpy()] = dst.numpy()
+        return out
 
 
 @dataclasses.dataclass
@@ -111,9 +218,54 @@ class QRSymbolic:
     cb_off: np.ndarray        # per supernode offset into carried-B rows
     total_CB: int             # total carried-B rows
     arow_of_front: list       # per supernode: A-row ids assembled there
+    # the plan of R's panels (the Cholesky layout of ss): the R solve
+    # walks it, and the QR and R-solve programs are cached on its _cache
+    plan: Optional[NumericPlan] = None
+    # where each supernode's beyond-pivot rows sit in its parent's row
+    # list (its C block's columns in the parent's front), supernode by
+    # supernode: the buckets' C runs index it
+    _kid_col: Optional[np.ndarray] = None
 
 
+class _Fronts:
+    """Per-supernode quantities of the QR fronts, as arrays, and the lookup
+    of a row's local position in a supernode's sorted row list."""
+
+    def __init__(self, ss: SuperSymbolic, n: int):
+        self.ss = ss
+        self.n = n
+        self.sup = ss.super.astype(np.int64)
+        self.rowptr = ss.sn_rowptr.astype(np.int64)
+        self.ns = np.diff(self.sup)
+        self.ms = np.diff(self.rowptr)
+        self.cc = self.ms - self.ns
+        # (supernode, row) keys of every panel row, sorted: each
+        # supernode's rows are sorted, so one search finds a local index
+        self.keys = (np.repeat(np.arange(ss.nsuper, dtype=np.int64), self.ms)
+                     * (n + 1) + ss.sn_rows)
+
+    def local(self, s: np.ndarray, rows: np.ndarray) -> np.ndarray:
+        """Position of each row ``rows[i]`` in supernode ``s[i]``'s rows
+        (each must be there)."""
+        want = s * (self.n + 1) + rows
+        at = np.searchsorted(self.keys, want)
+        if len(at) and not np.array_equal(
+                self.keys[np.minimum(at, len(self.keys) - 1)], want):
+            raise AssertionError("qr_symbolic: a front row outside the "
+                                 "supernode's row list")
+        return at - self.rowptr[s]
+
+
+@spanned("qr.symbolic")
 def qr_symbolic(A: SparseCSC, common: Optional[Common] = None) -> QRSymbolic:
+    """Column ordering and supernodes of A'A, the fronts' row counts and
+    every bucket's static maps.
+
+    Spans (utils/trace): ``qr.symbolic`` around the call, with the
+    ordering's and the supernodal analysis's spans inside it,
+    ``plan.qr_rows`` (A's rows to their fronts and the front sizes),
+    ``plan.qr_maps`` (the buckets' maps) and ``plan.build_plan`` (the
+    layout of R's panels that the R solve walks)."""
     cm = common or default_common()
     cm.checkpoint("qr_symbolic")
     m, n = A.shape
@@ -133,139 +285,163 @@ def qr_symbolic(A: SparseCSC, common: Optional[Common] = None) -> QRSymbolic:
     cm.cholesky.supernodal = "supernodal"
     sym = analyze(Asym, cm)
     ss = super_symbolic(Asym, sym, cm)
-
-    p = sym.perm                      # column ordering
-    Ap = SparseCSC.from_scipy(S[:, p].tocsc())   # A with permuted cols
-    # leftmost column (in permuted order) of each row
-    ApT = Ap.to_scipy().tocsr()
-    leftmost = np.full(m, -1, dtype=INDEX)
-    for i in range(m):
-        lo, hi = ApT.indptr[i], ApT.indptr[i + 1]
-        if hi > lo:
-            leftmost[i] = ApT.indices[lo:hi].min()
-    rows_list = [ss.rows_of(s) for s in range(ss.nsuper)]
-    arow_of_front: list[np.ndarray] = []
-    for s in range(ss.nsuper):
-        j1, j2 = int(ss.super[s]), int(ss.super[s + 1])
-        sel = np.where((leftmost >= j1) & (leftmost < j2))[0]
-        arow_of_front.append(sel.astype(INDEX))
-
-    # bottom-up front row counts and C-block sizes
     nsuper = ss.nsuper
-    crows = np.zeros(nsuper, dtype=INDEX)
-    frows = np.zeros(nsuper, dtype=INDEX)
-    children: list[list[int]] = [[] for _ in range(nsuper)]
-    for s in range(nsuper):
-        pnt = int(ss.sn_parent[s])
-        if pnt != -1:
-            children[pnt].append(s)
-    for s in range(nsuper):           # postorder: children first (s ascending)
-        ms, ns = ss.panel_shape(s)
-        fr = len(arow_of_front[s]) + sum(int(crows[c]) for c in children[s])
-        frows[s] = fr
-        ccols = ms - ns
-        crows[s] = max(0, min(fr - ns, ccols)) if ccols > 0 else 0
+    fx = _Fronts(ss, n)
 
-    c_off = np.zeros(nsuper + 1, dtype=INDEX)
-    np.cumsum([int(crows[s]) * (ss.panel_shape(s)[0] - ss.panel_shape(s)[1])
-               for s in range(nsuper)], out=c_off[1:])
-    cb_off = np.zeros(nsuper + 1, dtype=INDEX)
-    np.cumsum(crows, out=cb_off[1:])
+    with span("plan.qr_rows"):
+        p = sym.perm                      # column ordering
+        Ap = SparseCSC.from_scipy(S[:, p].tocsc())   # A with permuted cols
+        ApT = Ap.to_scipy().tocsr()
+        a_ptr = ApT.indptr.astype(np.int64)
+        # leftmost column (in permuted order) of each row, -1 if empty
+        leftmost = np.full(m, -1, dtype=INDEX)
+        full = np.diff(a_ptr) > 0
+        if full.any():
+            leftmost[full] = np.minimum.reduceat(ApT.indices, a_ptr[:-1][full])
+        # the rows each front assembles: those whose leftmost column is
+        # one of its pivotal columns, in ascending order
+        rows_h = np.nonzero(leftmost >= 0)[0]
+        s_of = ss.col_to_super[leftmost[rows_h]].astype(np.int64)
+        arow_all = rows_h[np.argsort(s_of, kind="stable")].astype(INDEX)
+        na = np.bincount(s_of, minlength=nsuper).astype(np.int64)
+        arow_ptr = np.concatenate([[0], np.cumsum(na)])
+        arow_of_front = np.split(arow_all, arow_ptr[1:-1])
 
-    # buckets per level
-    Ap_csc = Ap
+        # children of each supernode in ascending order (the postorder
+        # visits them first)
+        par = ss.sn_parent.astype(np.int64)
+        nonroot = np.nonzero(par >= 0)[0]
+        kids = nonroot[np.argsort(par[nonroot], kind="stable")]
+        nkids = np.bincount(par[nonroot], minlength=nsuper).astype(np.int64)
+        kid_ptr = np.concatenate([[0], np.cumsum(nkids)])
+
+        # bottom-up front row counts and C-block sizes (a supernode loop:
+        # each front waits for its children's C rows)
+        frows = np.zeros(nsuper, dtype=INDEX)
+        crows = np.zeros(nsuper, dtype=INDEX)
+        csum = [0] * nsuper
+        na_l, ns_l, cc_l, par_l = (na.tolist(), fx.ns.tolist(),
+                                   fx.cc.tolist(), par.tolist())
+        for s in range(nsuper):       # postorder: children first
+            fr = na_l[s] + csum[s]
+            cr = max(0, min(fr - ns_l[s], cc_l[s])) if cc_l[s] > 0 else 0
+            frows[s], crows[s] = fr, cr
+            if par_l[s] != -1:
+                csum[par_l[s]] += cr
+
+        c_off = np.zeros(nsuper + 1, dtype=INDEX)
+        np.cumsum(crows * fx.cc, out=c_off[1:])
+        cb_off = np.zeros(nsuper + 1, dtype=INDEX)
+        np.cumsum(crows, out=cb_off[1:])
+
+        # where each supernode's beyond-pivot rows sit in its parent's
+        # row list (the columns of its C block in the parent's front)
+        seg, pos = _ragged(fx.cc)
+        kid_col = np.zeros(len(seg), dtype=np.int64)
+        up = par[seg] >= 0
+        kid_col[up] = fx.local(par[seg][up], ss.sn_rows[
+            (fx.rowptr[seg] + fx.ns[seg] + pos)[up]])
+        kid_col_ptr = np.cumsum(fx.cc) - fx.cc
+
+    arrays = dict(ApT=ApT, a_ptr=a_ptr, arow_all=arow_all,
+                  arow_ptr=arow_ptr, na=na, kids=kids, nkids=nkids,
+                  kid_ptr=kid_ptr, frows=frows, crows=crows, c_off=c_off,
+                  cb_off=cb_off, kid_col=kid_col, kid_col_ptr=kid_col_ptr)
     levels_out = []
-    for level in ss.levels:
-        groups: dict[tuple, list[int]] = {}
-        for s in level.tolist():
-            ms, ns = ss.panel_shape(s)
-            key = (_pad_dim(max(int(frows[s]), 1)), _pad_dim(ms), _pad_dim(ns))
-            groups.setdefault(key, []).append(s)
-        buckets = []
-        for (FR, FC, Np), sids in sorted(groups.items()):
-            B = len(sids)
-            a_src, a_dst, c_src, c_dst = [], [], [], []
-            cb_src, cb_dst = [], []
-            b_rows = np.full((B, FR), -1, dtype=INDEX)
-            r_dst = np.full((B, FC, Np), ss.total, dtype=INDEX)
-            c_out_dst = np.full((B, FR, FC), int(c_off[-1]), dtype=INDEX)
-            cb_out_dst = np.full((B, FR), int(cb_off[-1]), dtype=INDEX)
-            colidx = np.full((B, Np), n, dtype=INDEX)
-            rowidx = np.full((B, FC), n, dtype=INDEX)
-            ns_arr = np.zeros(B, dtype=INDEX)
-            fr_arr = np.zeros(B, dtype=INDEX)
-            for b, s in enumerate(sids):
-                ms, ns = ss.panel_shape(s)
-                j1 = int(ss.super[s])
-                rows_s = rows_list[s]
-                ns_arr[b] = ns
-                fr_arr[b] = int(frows[s])
-                colidx[b, :ns] = j1 + np.arange(ns)
-                beyond = rows_s[ns:]
-                rowidx[b, :ms - ns] = beyond
-                colpos = {int(c): k for k, c in enumerate(rows_s)}
-                base = b * FR * FC
-                # A rows stack first (entry maps built in the pass below)
-                for rofs, r in enumerate(arow_of_front[s]):
-                    b_rows[b, rofs] = r
-                # children C blocks
-                crofs = len(arow_of_front[s])
-                for c in children[s]:
-                    ccols_c = ss.panel_shape(c)[0] - ss.panel_shape(c)[1]
-                    rows_c_beyond = rows_list[c][ss.panel_shape(c)[1]:]
-                    colmap = np.array([colpos[int(x)] for x in rows_c_beyond],
-                                      dtype=INDEX)
-                    for rr in range(int(crows[c])):
-                        srcrow = int(c_off[c]) + rr * ccols_c
-                        dstrow = base + (crofs + rr) * FC
-                        c_src.extend(range(srcrow, srcrow + ccols_c))
-                        c_dst.extend((dstrow + colmap).tolist())
-                        cb_src.append(int(cb_off[c]) + rr)
-                        cb_dst.append(b * FR + crofs + rr)
-                    crofs += int(crows[c])
-                # R output: workspace row t (t < min(fr, ms)) col k ->
-                # R panel (padded normalized layout): Rpanel[norm(k), t]
-                o = int(ss.panel_off[s])
-                NpS = int(ss.panel_Np[s])
-                for t in range(min(int(frows[s]), ms, ns)):
-                    for k in range(t, ms):
-                        nk = k if k < ns else NpS + (k - ns)
-                        r_dst[b, k, t] = o + nk * NpS + t
-                # C out: workspace rows ns..ns+crows, cols ns.. -> C buffer
-                ccols_s = ms - ns
-                for rr in range(int(crows[s])):
-                    for k in range(ccols_s):
-                        c_out_dst[b, ns + rr, ns + k] = (int(c_off[s])
-                                                         + rr * ccols_s + k)
-                    cb_out_dst[b, ns + rr] = int(cb_off[s]) + rr
-            # A entry maps (vectorized per bucket using the CSR)
-            for b, s in enumerate(sids):
-                rows_s = rows_list[s]
-                colpos = {int(c): k for k, c in enumerate(rows_s)}
-                base = b * FR * FC
-                for rofs, r in enumerate(arow_of_front[s]):
-                    lo, hi = int(ApT.indptr[r]), int(ApT.indptr[r + 1])
-                    for t in range(lo, hi):
-                        cpos = colpos[int(ApT.indices[t])]
-                        a_src.append(t)
-                        a_dst.append(base + rofs * FC + cpos)
-            buckets.append(_QRBucket(
-                sids=np.array(sids, dtype=INDEX), FR=FR, FC=FC, Np=Np,
-                a_src=np.array(a_src, dtype=INDEX),
-                a_dst=np.array(a_dst, dtype=INDEX),
-                c_src=np.array(c_src, dtype=INDEX),
-                c_dst=np.array(c_dst, dtype=INDEX),
-                b_rows=b_rows,
-                c_brow_src=np.array(cb_src, dtype=INDEX),
-                c_brow_dst=np.array(cb_dst, dtype=INDEX),
-                r_dst=r_dst, c_out_dst=c_out_dst, cb_out_dst=cb_out_dst,
-                colidx=colidx, rowidx=rowidx, ns=ns_arr, fr=fr_arr))
-        levels_out.append(buckets)
+    with span("plan.qr_maps"):
+        for level in ss.levels:
+            groups: dict[tuple, list[int]] = {}
+            for s in level.tolist():
+                key = (_pad_dim(max(int(frows[s]), 1)),
+                       _pad_dim(int(fx.ms[s])), _pad_dim(int(fx.ns[s])))
+                groups.setdefault(key, []).append(s)
+            levels_out.append([
+                _qr_bucket(fx, arrays, np.array(sids, dtype=INDEX), *key)
+                for key, sids in sorted(groups.items())])
+    plan = build_plan(ss)
     return QRSymbolic(m=m, n=n, sym=sym, ss=ss, levels=levels_out,
                       total_R=ss.total, total_C=int(c_off[-1]),
                       c_off=c_off, cb_off=cb_off, total_CB=int(cb_off[-1]),
-                      arow_of_front=arow_of_front)
+                      arow_of_front=arow_of_front, plan=plan,
+                      _kid_col=kid_col)
 
+
+def _qr_bucket(fx: _Fronts, ar: dict, sids: np.ndarray, FR: int, FC: int,
+               Np: int) -> _QRBucket:
+    """One bucket's maps, vectorized over its fronts: the reference's
+    per-entry loops (suitesparse_tpu/qr/spqr.py) give the same arrays, in
+    the same order."""
+    ss, n = fx.ss, fx.n
+    B = len(sids)
+    ms, ns = fx.ms[sids], fx.ns[sids]
+    fr = ar["frows"][sids].astype(np.int64)
+    crows = ar["crows"].astype(np.int64)
+    c_off, cb_off = ar["c_off"], ar["cb_off"]
+    colidx = np.full((B, Np), n, dtype=INDEX)
+    g, q = _ragged(ns)
+    colidx[g, q] = fx.sup[sids][g] + q
+    rowidx = np.full((B, FC), n, dtype=INDEX)
+    g, q = _ragged(ms - ns)
+    rowidx[g, q] = ss.sn_rows[fx.rowptr[sids][g] + ns[g] + q]
+
+    # A rows stack first: front b's rofs-th row is A row b_rows[b, rofs],
+    # each of its entries t lands in the front's column of its own column
+    b_rows = np.full((B, FR), -1, dtype=INDEX)
+    fa, rofs = _ragged(ar["na"][sids])
+    rows_a = ar["arow_all"][ar["arow_ptr"][sids][fa] + rofs]
+    b_rows[fa, rofs] = rows_a
+    ApT, a_ptr = ar["ApT"], ar["a_ptr"]
+    e, t = _ragged(a_ptr[rows_a + 1] - a_ptr[rows_a])
+    a_src = a_ptr[rows_a][e] + t
+    fe = fa[e]
+    a_dst = (fe * FR * FC + rofs[e] * FC
+             + fx.local(sids[fe], ApT.indices[a_src]))
+
+    # children's C blocks below them, child by child in ascending order:
+    # a run per C row
+    fp, kq = _ragged(ar["nkids"][sids])
+    kid = ar["kids"][ar["kid_ptr"][sids][fp] + kq]
+    kcr = crows[kid]
+    before = np.cumsum(kcr) - kcr          # C rows of earlier pairs
+    first = np.cumsum(ar["nkids"][sids]) - ar["nkids"][sids]
+    crofs = ar["na"][sids][fp] + before - before[first[fp]] if len(fp) \
+        else before
+    pr, rr = _ragged(kcr)                  # (pair, C row)
+    c_brow_src = cb_off[kid[pr]] + rr
+    c_brow_dst = fp[pr] * FR + crofs[pr] + rr
+    kpr = kid[pr]
+    c_runs = (c_off[kpr] + rr * fx.cc[kpr],
+              fp[pr] * FR * FC + (crofs[pr] + rr) * FC, fx.cc[kpr],
+              ar["kid_col_ptr"][kpr])
+
+    # R output: workspace row t (t < min(fr, ms, ns)) col k ->
+    # R panel (padded normalized layout) Rpanel[norm(k), t]: a run per
+    # front and k, fronts in panel order
+    po = ss.panel_off[sids].astype(np.int64)
+    pnp = ss.panel_Np[sids].astype(np.int64)
+    order = np.argsort(po, kind="stable")
+    fk, kk = _ragged(ms[order])
+    fk = order[fk]
+    tmax = np.minimum(np.minimum(fr, ms), ns)
+    nk = np.where(kk < ns[fk], kk, pnp[fk] + kk - ns[fk])
+    r_runs = (fk, kk, np.minimum(kk + 1, tmax[fk]), po[fk] + nk * pnp[fk])
+    # C out: workspace rows ns..ns+crows, cols ns.. -> C buffer, a run per
+    # C row
+    cr_b = crows[sids]
+    fc, rc = _ragged(cr_b)
+    cout_runs = (fc, rc, (ms - ns)[fc], c_off[sids][fc])
+    cb_out_dst = np.full((B, FR), int(cb_off[-1]), dtype=INDEX)
+    g, q = _ragged(cr_b)
+    cb_out_dst[g, ns[g] + q] = cb_off[sids][g] + q
+    ix = lambda a: np.asarray(a, dtype=INDEX)  # noqa: E731
+    return _QRBucket(
+        sids=sids, FR=FR, FC=FC, Np=Np, a_src=ix(a_src), a_dst=ix(a_dst),
+        b_rows=b_rows, c_brow_src=ix(c_brow_src), c_brow_dst=ix(c_brow_dst),
+        cb_out_dst=cb_out_dst, colidx=colidx, rowidx=rowidx, ns=ix(ns),
+        fr=ix(fr), _c_runs=tuple(map(ix, c_runs)),
+        _r_runs=tuple(map(ix, r_runs)), _cout_runs=tuple(map(ix, cout_runs)),
+        _kids=ix(kid), _kid_col=ar["kid_col"], _r_trash=int(ss.total),
+        _c_trash=int(c_off[-1]))
 
 
 @dataclasses.dataclass
@@ -286,50 +462,62 @@ class QRNumeric:
         return self.rank == min(self.symbolic.m, self.symbolic.n)
 
 
-def _bucket_maps(S: QRSymbolic, bq: _QRBucket, complete: bool) -> dict:
-    """Host index maps of one bucket's level step, as gathers straight out
-    of the front QR's R (B, mn, FC) and Q'B (B, mn, k), mn = FR in the
-    complete mode and min(FR, FC) otherwise.  They are the reference's
-    sorted maps (_sorted_pair/_sorted_drop) with the source positions
-    moved from the padded, transposed R^T (B, FC, Np), the zero-padded
-    (B, FR, FC) front and the zero-padded (B*FR) carried rows into R and
-    Q'B themselves: every target is one the reference writes, every value
-    the same, and no padded copy is made."""
-    B, FR, FC, Np = len(bq.sids), bq.FR, bq.FC, bq.Np
-    mn = FR if complete else min(FR, FC)
+def _c_layout(S: QRSymbolic) -> tuple:
+    """The program's C buffer: the C blocks in the order the buckets read
+    them (the level loop's order, then each bucket's assembly order), so
+    that a bucket's C entries are one slice of it.  Returns (each
+    supernode's block start, each bucket's (start, end) in level
+    order)."""
+    got = S.plan._cache.get("qr_c_layout")
+    if got is None:
+        size = np.diff(S.c_off)
+        off = np.zeros(S.ss.nsuper, dtype=np.int64)
+        reads, pos = [], 0
+        for bq in (bq for lv in S.levels for bq in lv):
+            sz = size[bq._kids]
+            off[bq._kids] = pos + np.cumsum(sz) - sz
+            reads.append((pos, pos + int(sz.sum())))
+            pos += int(sz.sum())
+        got = S.plan._cache["qr_c_layout"] = (off, reads)
+    return got
+
+
+def _bucket_maps(S: QRSymbolic, bq: _QRBucket, dev: torch.device,
+                 kid_col: torch.Tensor, read: tuple, off: np.ndarray) -> dict:
+    """Device index maps of one bucket's level step: (source, destination)
+    index tensors, but for "c": (start, end, destination), a slice of the
+    program's C buffer (``_c_layout``).  The assembly of A's rows is the
+    reference's sorted map (_sorted_pair); the large maps are expanded on
+    the device from the bucket's runs.  The output maps gather straight
+    out of the fronts' ``geqrf`` output QR (B, FR, FC), read through its
+    column-major storage, flat (b, c, r) -> (b FC + c) FR + r, and out of
+    Q'B (B, FR, k): every target is one the reference writes, with the
+    same value.  R's entries lie on and above the diagonal, where QR holds
+    R; the C-block entries below the diagonal, where QR holds Householder
+    vectors and R is zero, are left out (the C buffer starts zero)."""
+    B, FR = len(bq.sids), bq.FR
+    ix = lambda a: _index(a, dev)  # noqa: E731
     out = {}
     if len(bq.a_src):
-        out["a"] = _sorted_pair(bq, "_a_maps", bq.a_src, bq.a_dst)
-    if len(bq.c_src):
-        out["c"] = _sorted_pair(bq, "_c_maps", bq.c_src, bq.c_dst)
+        out["a"] = tuple(map(ix, _sorted_pair(bq, "_a_maps", bq.a_src,
+                                              bq.a_dst)))
+    if read[1] > read[0]:
+        out["c"] = (*read, bq.c_map(dev, kid_col)[1])
     br = bq.b_rows.reshape(-1)
     ok = np.nonzero(br >= 0)[0]
-    out["b"] = (br[ok].astype(INDEX), ok.astype(INDEX))
+    out["b"] = (ix(br[ok]), ix(ok))
     if len(bq.c_brow_src):
-        out["cb"] = _sorted_pair(bq, "_cb_maps", bq.c_brow_src,
-                                 bq.c_brow_dst)
-    # R rows -> R panels: Rt[b, k, t] = R[b, t, k]
-    rsrc, rdst = _sorted_drop(bq, "_r_maps", bq.r_dst, S.total_R)
-    b, k, t = np.unravel_index(rsrc, (B, FC, Np))
-    assert np.all(t < mn), "R panel row beyond the front's R"
-    out["r"] = (((b * mn + t) * FC + k).astype(INDEX), rdst)
-    # C block -> C buffer: Rfull[b, r, c] = R[b, r, c] for r < mn
-    osrc, odst = _sorted_drop(bq, "_cout_maps", bq.c_out_dst, S.total_C)
-    b, r, c = np.unravel_index(osrc, (B, FR, FC))
-    assert np.all(r < mn), "C block row beyond the front's R"
-    out["cout"] = (((b * mn + r) * FC + c).astype(INDEX), odst)
+        out["cb"] = tuple(map(ix, _sorted_pair(bq, "_cb_maps", bq.c_brow_src,
+                                               bq.c_brow_dst)))
+    out["r"] = bq.r_map(dev, FR)
+    out["cout"] = bq.cout_map(dev, upper=True,
+                              off=off[bq.sids[bq._cout_runs[0]]])
     # carried rows of Q'B -> carried-B buffer
-    bsrc, bdst = _sorted_drop(bq, "_cbout_maps", bq.cb_out_dst, S.total_CB)
-    b, r = np.unravel_index(bsrc, (B, FR))
-    assert np.all(r < mn), "carried row beyond the front's Q'B"
-    out["cbout"] = ((b * mn + r).astype(INDEX), bdst)
+    out["cbout"] = tuple(map(ix, _sorted_drop(bq, "_cbout_maps",
+                                              bq.cb_out_dst, S.total_CB)))
     # Q'b's top rows -> qtb rows (the pivotal columns; unique over fronts)
-    take = np.minimum(bq.ns, mn)
-    qsrc = np.concatenate([bi * mn + np.arange(take[bi])
-                           for bi in range(B)]).astype(INDEX)
-    qdst = np.concatenate([bq.colidx[bi, :take[bi]]
-                           for bi in range(B)]).astype(INDEX)
-    out["qtb"] = (qsrc, qdst)
+    g, q = _ragged(np.minimum(bq.ns, FR))
+    out["qtb"] = (ix(g * FR + q), ix(bq.colidx[g, q]))
     return out
 
 
@@ -337,26 +525,23 @@ def _diag_index(S: QRSymbolic) -> np.ndarray:
     """Flat positions of R's diagonal in the panel buffer, in column
     order (the reference reads np.diag of each supernode's panel)."""
     ss = S.ss
-    return np.concatenate(
-        [int(ss.panel_off[s]) + np.arange(ss.panel_shape(s)[1])
-         * (int(ss.panel_Np[s]) + 1) for s in range(ss.nsuper)]
-        + [np.zeros(0, dtype=np.int64)]).astype(INDEX)
+    s, t = _ragged(np.diff(ss.super))
+    return (ss.panel_off[s] + t * (ss.panel_Np[s] + 1)).astype(INDEX)
 
 
-def _device_plan(S: QRSymbolic, dev: torch.device, complete: bool) -> dict:
-    """Device copies of every bucket's maps, cached on the symbolic per
-    device and mode."""
-    cache = S.__dict__.setdefault("_device_plans", {})
-    key = (dev, complete)
-    got = cache.get(key)
+def _device_plan(S: QRSymbolic, dev: torch.device) -> list:
+    """Every bucket's maps on ``dev``, cached on the symbolic's plan per
+    device."""
+    key = ("qr_maps", dev)
+    got = S.plan._cache.get(key)
     if got is None:
-        levels = []
-        for lv in S.levels:
-            levels.append([{name: (_index(src, dev), _index(dst, dev))
-                            for name, (src, dst) in
-                            _bucket_maps(S, bq, complete).items()}
-                           for bq in lv])
-        got = cache[key] = levels
+        with span("plan.qr_device_maps"):
+            off, reads = _c_layout(S)
+            kid_col = _index(S._kid_col, dev)
+            it = iter(reads)
+            got = S.plan._cache[key] = [
+                [_bucket_maps(S, bq, dev, kid_col, next(it), off)
+                 for bq in lv] for lv in S.levels]
     return got
 
 
@@ -372,6 +557,149 @@ def r_diagonal(S: QRSymbolic, Rbuf: torch.Tensor) -> np.ndarray:
     return d.astype(np.complex128 if np.iscomplexobj(d) else np.float64)
 
 
+def _complete_q(QR: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    """The (B, FR, FR) complete Q of the fronts' geqrf output, as
+    torch.linalg.qr(mode="complete") forms it."""
+    B, FR, FC = QR.shape
+    if FR > FC:
+        Q = QR.new_zeros((B, FR, FR))
+        Q[:, :, :FC] = QR
+    else:
+        Q = QR[:, :, :FR]
+    return torch.linalg.householder_product(Q, tau)
+
+
+def front_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The precision the fronts are factored in for an R of ``dtype``:
+    float64 (complex128) for float32 (complex64) and for float64.
+
+    Householder QR of a float32 front is not accurate enough at the sizes
+    a 3-D problem's top fronts reach.  On the 38,326 x 7,820 root front of
+    the 64^3 phase-unwrapping matrix, max |W^T W - R^T R| / max_j
+    ||w_j||^2 reads 1.9e-6 to 2.4e-3 with cuSOLVER's float32 geqrf,
+    depending on the values and on the rows' order, and 3.5e-5 with
+    LAPACK's on the CPU; in float64 it reads 1.8e-14.  So the fronts, the
+    C blocks passed up the tree and Q'B are float64, and R is rounded to
+    its own dtype once, as each front writes it."""
+    return torch.complex128 if dtype.is_complex else torch.float64
+
+
+def _qr_levels(S: QRSymbolic, maps: list, av: torch.Tensor,
+               bk: Optional[torch.Tensor], Qs: Optional[list] = None):
+    """The level loop: (Rbuf, qtb) from the values ``av`` in the factored
+    order and the right-hand sides ``bk`` (m, k) or None (qtb is then
+    None).  Each bucket's fronts are assembled from A's rows and their
+    children's C blocks (one slice of the C buffer, ``_c_layout``),
+    factored by one batched geqrf, and their R rows, C blocks and (with
+    ``bk``) Q'B rows, from one ormqr, scattered out.  The fronts, C blocks
+    and Q'B are in ``front_dtype``; Rbuf is in ``av``'s dtype, qtb in the
+    fronts'.  ``Qs`` (a list) collects each bucket's complete Q on the
+    device, in ``av``'s dtype."""
+    Rbuf = av.new_zeros(S.total_R + 1)
+    av = av.to(front_dtype(av.dtype))
+    Cbuf = av.new_zeros(S.total_C + 1)
+    qtb = None
+    if bk is not None:
+        k = bk.shape[1]
+        bk = bk.to(av.dtype)
+        CBbuf = av.new_zeros((S.total_CB + 1, k))
+        qtb = av.new_zeros((S.n, k))
+    for lv, lmaps in zip(S.levels, maps):
+        for bq, mp in zip(lv, lmaps):
+            B, FR, FC = len(bq.sids), bq.FR, bq.FC
+            W = av.new_zeros(B * FR * FC)
+            if "a" in mp:
+                src, dst = mp["a"]
+                W[dst] = av[src]
+            if "c" in mp:
+                lo, hi, dst = mp["c"]
+                W[dst] = Cbuf[lo:hi]
+            QR, tau = torch.geqrf(W.view(B, FR, FC))
+            F = QR.transpose(1, 2).reshape(-1)    # a view when column-major
+            src, dst = mp["r"]
+            Rbuf[dst] = F[src].to(Rbuf.dtype)
+            src, dst = mp["cout"]
+            Cbuf[dst] = F[src]
+            if Qs is not None:
+                Qs.append(_complete_q(QR, tau).to(Rbuf.dtype))
+            if bk is None:
+                continue
+            WB = av.new_zeros((B * FR, k))
+            src, dst = mp["b"]
+            WB[dst] = bk[src]
+            if "cb" in mp:
+                src, dst = mp["cb"]
+                WB[dst] = CBbuf[src]
+            QtB = torch.ormqr(QR, tau, WB.view(B, FR, k), left=True,
+                              transpose=True).reshape(-1, k)
+            src, dst = mp["cbout"]
+            CBbuf[dst] = QtB[src]
+            src, dst = mp["qtb"]
+            qtb[dst] = QtB[src]
+    return Rbuf, qtb
+
+
+def qr_program(S: QRSymbolic, dtype, device, k: int = 0) -> DeviceProgram:
+    """The numeric QR as one device program, cached on the symbolic's plan
+    per (dtype, device, k): the values in the factored order (nnz,) in --
+    and with k > 0 the right-hand sides (m, k) -- (Rbuf, qtb) out (qtb an
+    empty (n, 0) without right-hand sides)."""
+    dt = torch_dtype(dtype)
+    dev = program_device(device)
+
+    def make():
+        maps = _device_plan(S, dev)
+
+        def body(av, bk=None):
+            Rbuf, qtb = _qr_levels(S, maps, av, bk)
+            return Rbuf, (av.new_zeros((S.n, 0)) if qtb is None else qtb)
+        return body
+
+    return cached_program(S.plan._cache, ("qr", dt, dev, int(k)), make, dev)
+
+
+def _qr_value_map(S: QRSymbolic, A: SparseCSC) -> PatternMap:
+    """The value map of ``A``'s pattern under ``S``, kept in
+    ``S.plan._cache`` as a ``PatternMap`` (utils/programs) whose ``vmap``
+    says where each value of the factored order (the CSR of A with its
+    columns permuted) lies in ``A.data`` and whose ``extra`` holds the
+    first entry of each nonempty column of A, reused while A has the
+    pattern it was made from.  Made (span ``plan.qr_value_map``)
+    by running the old values' chain -- SciPy's column permutation and CSR
+    conversion -- on the positions of A's entries, since each step only
+    selects and reorders.  Raises SparseError(INVALID) when A's entry
+    count is not the symbolic's."""
+    def build():
+        itype = np.int32 if A.nnz < 2**31 - 1 else np.int64
+        # positions from 1: a position 0 would be a stored zero
+        pos = SparseCSC(A.indptr, A.indices,
+                        np.arange(1, A.nnz + 1, dtype=np.int64),
+                        A.shape).to_scipy().tocsc()[:, S.sym.perm].tocsr()
+        need = sum(len(bq.a_src) for lv in S.levels for bq in lv)
+        if pos.nnz != A.nnz or pos.nnz != need:
+            raise SparseError(Status.INVALID,
+                              "qr_factorize: the matrix's pattern is not the "
+                              "symbolic's")
+        nonempty = np.diff(A.indptr) > 0
+        return ((pos.data - 1).astype(itype),
+                np.asarray(A.indptr[:-1])[nonempty])
+
+    return pattern_map(S.plan._cache, "qr_value_map", A, build,
+                       "plan.qr_value_map")
+
+
+def _default_tol(starts: np.ndarray, data: np.ndarray, m: int, n: int,
+                 dtype) -> float:
+    """20 (m + n) eps max_j ||A[:, j]||_2 (spqr_tol.cpp), each column's
+    squares summed in its stored order, as SciPy's column sum does."""
+    sq = np.abs(data) ** 2
+    top = (np.add.reduceat(sq, starts).max() if len(starts)
+           else np.float64(0.0))
+    eps = np.finfo(dtype.type(0).real.dtype).eps
+    return 20.0 * (m + n) * eps * max(np.sqrt(top), 1e-300)
+
+
+@spanned("qr.numeric")
 def qr_factorize(A: SparseCSC, S: QRSymbolic, b: Optional[np.ndarray] = None,
                  common: Optional[Common] = None, tol: Optional[float] = None,
                  dtype=None, keep_q: bool = False,
@@ -384,90 +712,77 @@ def qr_factorize(A: SparseCSC, S: QRSymbolic, b: Optional[np.ndarray] = None,
     keep_q=True retains the per-front complete-mode Q blocks on the host
     so Q can be applied after the fact (qr_qmult / SuiteSparseQR_qmult,
     SPQR/Source/SuiteSparseQR_qmult.cpp) -- the equivalent of returning Q
-    in Householder form."""
+    in Householder form.
+
+    Spans (utils/trace): ``qr.numeric`` around the call, and inside it
+    ``.values`` (A's values, and b, cast in their own order on the host,
+    and the default tol), with ``plan.qr_value_map`` inside the first one
+    of a pattern, ``.upload`` (h2d), ``.gather`` (the values put in the
+    factored order on the device, d2d), ``.program`` (the QR program's
+    copy-in, replay and clones, d2d; its first call on a pattern warms up
+    and captures it: ``qr_program(S, dtype, device, k)`` holds its
+    ``warmup_s``, ``capture_s`` and ``nodes``), ``.check`` (the rank from
+    R's diagonal, which waits for the device) and ``.download`` (Q'b's
+    rows, d2h).  keep_q runs the same level loop eagerly, not captured."""
     cm = common or default_common()
     cm.checkpoint("qr_factorize")
     dev = resolve_device(device)
     cm.tic("qr_factorize")
     m, n = S.m, S.n
-    Sc = A.to_scipy().tocsc()[:, S.sym.perm]
-    ApT = Sc.tocsr()
-    is_complex_data = np.iscomplexobj(ApT.data)
-    if dtype is None:
-        dtype = default_dtype(dev, is_complex_data)
-    dtype = numpy_dtype(dtype)
-    if is_complex_data and not np.issubdtype(dtype, np.complexfloating):
-        dtype = np.dtype(np.complex64 if dtype == np.float32
-                         else np.complex128)
-    tdt = torch_dtype(dtype)
-    avals = torch.as_tensor(ApT.data.astype(dtype), device=dev)
-
-    is_complex = np.issubdtype(dtype, np.complexfloating)
-    # default tol = 20*(m+n)*eps*max column 2-norm (spqr_tol.cpp)
-    if tol is None:
-        tol = cm.qr.tol
-    if tol is None:
-        colnorm = np.sqrt(np.asarray(abs(Sc).power(2).sum(axis=0)).ravel())
-        eps = np.finfo(dtype.type(0).real.dtype).eps
-        tol = 20.0 * (m + n) * eps * max(colnorm.max(initial=0.0), 1e-300)
-
-    k = 1
-    host_dt = np.complex128 if is_complex else np.float64
-    bk = None
-    if b is not None:
-        b = np.asarray(b, dtype=host_dt)
-        k = b.reshape(m, -1).shape[1]
-        bk = torch.as_tensor(b.reshape(m, k).astype(dtype), device=dev)
-
-    plan = _device_plan(S, dev, keep_q)
-    Rbuf = torch.zeros(S.total_R + 1, dtype=tdt, device=dev)
-    Cbuf = torch.zeros(S.total_C + 1, dtype=tdt, device=dev)
-    if bk is not None:
-        CBbuf = torch.zeros((S.total_CB + 1, k), dtype=tdt, device=dev)
-        qtb = torch.zeros((n, k), dtype=tdt, device=dev)
-    Qs: Optional[list] = [] if keep_q else None
-    # Q is needed only to carry B or to keep it: otherwise mode "r" gives
-    # the same geqrf R without forming Q (nothing reads the zero Q'B)
-    mode = "complete" if keep_q else ("reduced" if bk is not None else "r")
-
-    for lv, maps in zip(S.levels, plan):
+    with span("qr.numeric.values"):
+        if A.stype != 0:
+            A = SparseCSC.from_scipy(A.to_scipy())
+        data = A.data if A.data is not None else np.ones(A.nnz)
+        is_complex = np.iscomplexobj(data)
+        if dtype is None:
+            dtype = default_dtype(dev, is_complex)
+        dtype = numpy_dtype(dtype)
+        if is_complex and not np.issubdtype(dtype, np.complexfloating):
+            dtype = np.dtype(np.complex64 if dtype == np.float32
+                             else np.complex128)
+        vm = _qr_value_map(S, A)
+        host = data.astype(dtype)
+        # default tol = 20*(m+n)*eps*max column 2-norm (spqr_tol.cpp)
+        if tol is None:
+            tol = cm.qr.tol
+        if tol is None:
+            tol = _default_tol(vm.extra, data, m, n, dtype)
+        host_dt = (np.complex128 if np.issubdtype(dtype, np.complexfloating)
+                   else np.float64)
+        k, bh = 1, None
+        if b is not None:
+            b = np.asarray(b, dtype=host_dt)
+            k = b.reshape(m, -1).shape[1]
+            bh = b.reshape(m, k).astype(dtype)
+    with span("qr.numeric.upload"):
+        va = torch.as_tensor(host, device=dev)
+        bk = None if bh is None else torch.as_tensor(bh, device=dev)
+        moved("h2d", host.nbytes + (0 if bh is None else bh.nbytes))
+    with span("qr.numeric.gather"):
+        av = torch.index_select(va, 0, vm.device(dev))
+        del va
+        moved("d2d", host.nbytes)
+    Qs: Optional[list] = None
+    with span("qr.numeric.program"):
         if keep_q:
-            Qs.append([])
-        for bq, mp in zip(lv, maps):
-            B = len(bq.sids)
-            W = torch.zeros(B * bq.FR * bq.FC, dtype=tdt, device=dev)
-            if "a" in mp:
-                src, dst = mp["a"]
-                W[dst] = avals[src]
-            if "c" in mp:
-                src, dst = mp["c"]
-                W[dst] = Cbuf[src]
-            Q, R = torch.linalg.qr(W.view(B, bq.FR, bq.FC), mode=mode)
-            if keep_q:
-                Qs[-1].append(Q.cpu().numpy())          # (B, FR, FR)
-            Rf = R.reshape(-1)
-            src, dst = mp["r"]
-            Rbuf[dst] = Rf[src]
-            src, dst = mp["cout"]
-            Cbuf[dst] = Rf[src]
-            if bk is None:
-                continue
-            # carried B block
-            WB = torch.zeros((B * bq.FR, k), dtype=tdt, device=dev)
-            src, dst = mp["b"]
-            WB[dst] = bk[src]
-            if "cb" in mp:
-                src, dst = mp["cb"]
-                WB[dst] = CBbuf[src]
-            QtB = (Q.mH @ WB.view(B, bq.FR, k)).reshape(-1, k)
-            src, dst = mp["cbout"]
-            CBbuf[dst] = QtB[src]
-            src, dst = mp["qtb"]
-            qtb[dst] = QtB[src]
-    # rank from |diag(R)|
-    rank = int((np.abs(r_diagonal(S, Rbuf)) > tol).sum())
-    qtb_h = (qtb.cpu().numpy().astype(host_dt) if bk is not None
-             else np.zeros((n, k), dtype=host_dt))
+            Qd: list = []
+            Rbuf, qtb = _qr_levels(S, _device_plan(S, dev), av, bk, Qd)
+            Qs, it = [], iter(Qd)
+            for lv in S.levels:
+                Qs.append([next(it).cpu().numpy() for _ in lv])
+        elif bk is None:
+            Rbuf, qtb = qr_program(S, dtype, dev)(av)
+            qtb = None
+        else:
+            Rbuf, qtb = qr_program(S, dtype, dev, k)(av, bk)
+    with span("qr.numeric.check"):
+        rank = int((np.abs(r_diagonal(S, Rbuf)) > tol).sum())
+    with span("qr.numeric.download"):
+        if qtb is None:
+            qtb_h = np.zeros((n, k), dtype=host_dt)
+        else:
+            qtb_h = qtb.cpu().numpy().astype(host_dt)
+            moved("d2h", qtb.numel() * qtb.element_size())
     cm.status = Status.OK if rank == min(m, n) else Status.SINGULAR
     cm.info.update({"qr_rank": rank, "qr_tol": tol,
                     "qr_time": cm.toc("qr_factorize")})
@@ -637,44 +952,73 @@ def qr_q(num: QRNumeric, econ: bool = True) -> np.ndarray:
     return Q[:, :S.n] if econ and S.n <= Q.shape[1] else Q
 
 
+def _bind_r(num: QRNumeric):
+    """Make ``num``'s R the factor that the R-solve programs of its
+    symbolic's plan read (``super_numeric.SolveFactor``, one per route,
+    dtype and device), through ``Binding.load`` in the span
+    ``qr.solve.bind``: R's panels (R^T in the Cholesky factor's layout),
+    and on the wave route their inverted diagonal blocks.  A dead pivot
+    (|diag| <= tol) gets the unit row in R, so that with a zero right-hand
+    side entry its unknown is 0 -- the basic solution's convention.  Only
+    another numeric, or new values, are copied in.  Returns the dead
+    pivots."""
+    S = num.symbolic
+    plan = S.plan
+    wave = plan.use_wave()
+    dev = num.Rbuf.device
+    R = _solve_factor(plan, wave, num.Rbuf.dtype, dev, None)
+    dead = np.zeros(0, dtype=np.int64)
+    if num.rank < S.n:
+        dead = np.nonzero(np.abs(r_diagonal(S, num.Rbuf)) <= num.tol)[0]
+
+    def sources():
+        src = num.Rbuf[:plan.total]
+        if len(dead):
+            ss = S.ss
+            s = ss.col_to_super[dead].astype(np.int64)
+            t = dead - ss.super[s]
+            o, Np = ss.panel_off[s], ss.panel_Np[s]
+            g, r = _ragged(ss.panel_Mp[s])
+            src = src.clone()
+            src[_index(o[g] + r * Np[g] + t[g], dev)] = 0
+            src[_index(o + t * (Np + 1), dev)] = 1
+        yield src
+        if wave:
+            yield R.dinv()      # from the panels just copied in
+
+    R.bound.load("qr.solve.bind", num, (num.Rbuf,), sources)
+    return dead
+
+
+@spanned("qr.solve")
 def qr_rsolve(num: QRNumeric, c: np.ndarray, dead_zero: bool = True) -> np.ndarray:
     """x = R \\ c in the permuted column space; dead columns get x=0
-    (SPQR basic solution convention)."""
+    (SPQR basic solution convention).
+
+    Runs on the device of R through the plan's "Lt" solve program
+    (``super_numeric.solve_program``: R x = c is L^T x = c for L = R^T,
+    which R's panels hold), in R's dtype.  Spans (utils/trace):
+    ``qr.solve`` around the call, and inside it ``.bind`` (where
+    ``_bind_r`` copies a numeric in), ``.upload`` (c, h2d), ``.program``
+    (copy-in, replay, clone) and ``.download`` (x, d2h)."""
     S = num.symbolic
-    ss = S.ss
     n = S.n
-    h = num.Rbuf.cpu().numpy()
-    dt = np.result_type(h.dtype, np.float64)
+    dt = np.result_type(num.dtype, np.float64)
     x = np.array(c, dtype=dt, copy=True)
     one_d = x.ndim == 1
     xk = x.reshape(n, -1)
-    for s in range(ss.nsuper - 1, -1, -1):
-        ms, ns_ = ss.panel_shape(s)
-        Np, Mp = int(ss.panel_Np[s]), int(ss.panel_Mp[s])
-        o = int(ss.panel_off[s])
-        pn = h[o:o + Mp * Np].reshape(Mp, Np).astype(dt)
-        j1 = int(ss.super[s])
-        rows_s = ss.rows_of(s)
-        beyond = rows_s[ns_:]
-        R11t = pn[:ns_, :ns_]       # R11^T (ns x ns), lower triangular
-        R12t = pn[Np:Np + (ms - ns_), :ns_]   # R12^T ((ms-ns) x ns)
-        rhs = xk[j1:j1 + ns_]
-        if len(beyond):
-            rhs = rhs - R12t.T @ xk[beyond]
-        d = np.diag(R11t)
-        dead = np.abs(d) <= num.tol
-        # solve R11 y = rhs  (R11 = R11t.T upper triangular)
-        import scipy.linalg as sla
-        R11 = R11t.T.copy()
-        if dead.any():
-            R11[dead, :] = 0.0
-            R11[:, dead] = 0.0
-            R11[dead, dead] = 1.0
-            rhs = rhs.copy()
-            rhs[dead] = 0.0
-        y = sla.solve_triangular(R11, rhs, lower=False)
-        xk[j1:j1 + ns_] = y
-    return x.reshape(-1) if one_d else xk
+    xk[_bind_r(num)] = 0
+    dev = num.Rbuf.device
+    prog = solve_program(S.plan, "Lt", xk.shape[1], num.Rbuf.dtype, dev)
+    with span("qr.solve.upload"):
+        ct = torch.as_tensor(xk, device=dev).to(num.Rbuf.dtype)
+        moved("h2d", xk.nbytes)
+    with span("qr.solve.program"):
+        xt = prog(ct)
+    with span("qr.solve.download"):
+        out = xt.cpu().numpy().astype(dt)
+        moved("d2h", out.nbytes)
+    return out.reshape(-1) if one_d else out
 
 
 def qr_rtsolve(num: QRNumeric, c: np.ndarray) -> np.ndarray:
@@ -715,29 +1059,45 @@ def qr_rtsolve(num: QRNumeric, c: np.ndarray) -> np.ndarray:
     return x.reshape(-1) if one_d else xk
 
 
+def _r_coo(num: QRNumeric) -> tuple:
+    """(rows, columns, values) of R's nonzero entries on the host, sorted
+    by column and then row, expanded and gathered on R's device: the
+    panel row r (supernode s's r-th row, normalized) and column t hold
+    R[j1 + t, rows_s[r]] for t <= r."""
+    S, dev = num.symbolic, num.Rbuf.device
+    ss = S.ss
+    sup = ss.super.astype(np.int64)
+    ns = np.diff(sup)
+    s, r = _ragged(np.diff(ss.sn_rowptr))
+    prow = np.where(r < ns[s], r, ss.panel_Np[s] + r - ns[s])
+    ix = lambda a: _index(a, dev)  # noqa: E731
+    seg, t = _runs(ix(np.minimum(r + 1, ns[s])))
+    pos = ix(ss.panel_off[s] + prow * ss.panel_Np[s])[seg] + t
+    vals = num.Rbuf[pos]
+    rows = ix(sup[s])[seg] + t
+    cols = ix(ss.sn_rows)[seg]
+    nz = vals != 0
+    rows, cols, vals = rows[nz], cols[nz], vals[nz]
+    order = torch.argsort(cols * S.n + rows)
+    return tuple(a[order].cpu().numpy() for a in (rows, cols, vals))
+
+
 def _r_matrix(num: QRNumeric):
     """R (n x n, upper triangular, permuted column order) as a host scipy
     CSR matrix, read out of the panel buffer."""
+    return qr_get_r(num).tocsr()
+
+
+def qr_get_r(num: QRNumeric):
+    """R as a SciPy CSC matrix of its nonzero entries (n x n, upper
+    triangular), whose column j is column ``num.symbolic.sym.perm[j]`` of
+    A: A P = Q R."""
     import scipy.sparse as sp
-    S = num.symbolic
-    ss = S.ss
-    h = num.Rbuf.cpu().numpy()
-    rows, cols, vals = [], [], []
-    for s in range(ss.nsuper):
-        ms, ns = ss.panel_shape(s)
-        Np, Mp = int(ss.panel_Np[s]), int(ss.panel_Mp[s])
-        o = int(ss.panel_off[s])
-        pn = h[o:o + Mp * Np].reshape(Mp, Np)
-        # blk[r, t] = R[j1 + t, rows_s[r]]
-        blk = np.concatenate([pn[:ns, :ns], pn[Np:Np + ms - ns, :ns]])
-        r, t = np.nonzero(blk)
-        rows.append(int(ss.super[s]) + t)
-        cols.append(ss.rows_of(s)[r])
-        vals.append(blk[r, t])
-    return sp.csr_matrix((np.concatenate(vals + [h[:0]]),
-                          (np.concatenate(rows + [np.zeros(0, INDEX)]),
-                           np.concatenate(cols + [np.zeros(0, INDEX)]))),
-                         shape=(S.n, S.n))
+    n = num.symbolic.n
+    rows, cols, vals = _r_coo(num)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(cols, minlength=n), out=indptr[1:])
+    return sp.csc_matrix((vals, rows, indptr), shape=(n, n))
 
 
 def _basic_solve(num: QRNumeric, c: np.ndarray,

@@ -1070,3 +1070,45 @@ def test_not_posdef_minor_on_the_card_is_the_cpus(dtype):
             + int(ss.panel_Mp[s]) * int(ss.panel_Np[s])]).any()]
         got.append((f.minor, nan))
     assert got[0] == got[1] and len(got[0][1]) > 2
+
+
+@pytest.mark.gpu
+def test_qr_program_replay_is_its_eager_body_and_refactors_repeat():
+    """qr_factorize with b runs the captured QR program: its replay equals
+    the program's eager body on the same inputs bit for bit (R and Q'b),
+    two refactorizations are bit-identical, R without b equals R with b,
+    and the device R solve agrees with the CPU's float64 path within
+    1e-5 (kappa <= 35: float32's ~4e-6 twice)."""
+    _need_card()
+    from suitesparse_tpu_torch.core.sparse import SparseCSC
+    from suitesparse_tpu_torch.io.generators import grad3d
+    from suitesparse_tpu_torch.qr import spqr
+    import scipy.sparse as sp
+    rng = np.random.default_rng(23)
+    G = grad3d(12)
+    w = np.sqrt(rng.uniform(0.01, 1.0, G.shape[0]))
+    A = SparseCSC.from_scipy(sp.vstack([sp.diags(w) @ G,
+                                        0.1 * sp.identity(G.shape[1])]))
+    S = spqr.qr_symbolic(A)
+    b = rng.standard_normal(A.shape[0])
+    g = spqr.qr_factorize(A, S, b=b)
+    prog = spqr.qr_program(S, np.float32, "cuda", 1)
+    assert prog.graph is not None and prog.nodes > 0
+    again = spqr.qr_factorize(A, S, b=b)
+    assert torch.equal(g.Rbuf, again.Rbuf) and np.array_equal(g.qtb,
+                                                              again.qtb)
+    dev = g.Rbuf.device
+    av = torch.index_select(torch.as_tensor(A.data.astype(np.float32),
+                                            device=dev), 0,
+                            spqr._qr_value_map(S, A).device(dev))
+    bk = torch.as_tensor(b.astype(np.float32).reshape(-1, 1), device=dev)
+    R, q = prog.eager(av, bk)
+    assert torch.equal(R, g.Rbuf)
+    assert np.array_equal(q.cpu().numpy().astype(np.float64), g.qtb)
+    assert torch.equal(spqr.qr_factorize(A, S).Rbuf, g.Rbuf)
+    x = spqr.qr_rsolve(g, g.qtb[:, 0])
+    assert spqr.solve_program(S.plan, "Lt", 1, torch.float32,
+                              dev).graph is not None
+    c = spqr.qr_factorize(A, S, b=b, device="cpu")
+    xc = spqr.qr_rsolve(c, c.qtb[:, 0])
+    assert np.abs(x - xc).max() <= 1e-5 * np.abs(xc).max()
