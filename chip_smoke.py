@@ -24,14 +24,18 @@ multifrontal LU (umf_symbolic, umf_numeric refactorizations, umf_solve
 with float64 refinement) on cd3d_44, a convection-diffusion operator
 (``io.generators.cd3d``), and on randunsym_5000; a singular case; and KLU on
 circuit_4000, on the host and through its device twin with a sweep of
-value sets.  Then the QR family (``[qr]``, no kernel of the port on its
-path either): the multifrontal QR (qr_symbolic, qr_factorize
+value sets.  Then the QR family (``[qr]``, where the fronts above 256
+rows run the panel kernel ``csrc/qr_panel.cu``, counted a factorization):
+the multifrontal QR (qr_symbolic, qr_factorize
 refactorizations, the least-squares solve through Q'b and the host R
 solve) on grad3d_32_tik, a Tikhonov-damped 3-D gradient, and
 on randunsym_5000, each against a float64 oracle; the keep_q paths
-(spqr_null, spqr_pinv, qr_min2norm, qr_qmult, qr_q) on grad3d_16; and the
+(spqr_null, spqr_pinv, qr_min2norm, qr_qmult, qr_q) on grad3d_16; the
 Factorize/backslash front door on an SPD, an unsymmetric, a rectangular
-and a symmetric indefinite matrix, block_chol counted for each.  Last
+and a symmetric indefinite matrix, block_chol counted for each; and the
+panel kernel's ``[kernel] qr_panel`` lines (``tools/bench_qr_front.py``:
+front_qr against its plain version at 768, 9,856 and 38,400 rows, timed
+beside geqrf with ormqr).  Last
 the distributed layer (``[dist]``, no kernel of the port on its path):
 rank processes of ``suitesparse_tpu_torch/tools/multihost_dryrun.py``
 that share this card, over gloo through a ``file://`` store under
@@ -126,7 +130,8 @@ PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 # the port's CUDA sources, csrc/<name>.cu
-KERNELS = ("block_chol", "bcsr_spmm", "dispatch_probe", "pf_extend_add")
+KERNELS = ("block_chol", "bcsr_spmm", "dispatch_probe", "pf_extend_add",
+           "qr_panel")
 DISPATCH_G = (64, 256)        # grid sizes of the dispatch-floor probes
 # grid sizes they are checked at: chunk counts that are no multiple of the
 # persistent grid, and grids smaller than the SM count
@@ -2339,6 +2344,7 @@ def run_qr_cell(name, A, oracle, limit) -> dict:
     from suitesparse_tpu_torch.core.common import default_common
     from suitesparse_tpu_torch.qr import (qr_factorize, qr_rsolve,
                                           qr_symbolic, r_diagonal)
+    from suitesparse_tpu_torch.qr.spqr import QR_KERNEL_ROWS, front_qr
     m, n = A.shape
     cm = default_common()
     t0 = time.perf_counter()
@@ -2351,8 +2357,14 @@ def run_qr_cell(name, A, oracle, limit) -> dict:
     t_first, num = host_time(lambda: qr_factorize(A, S, common=cm))
     check(num.Rbuf.device.type == "cuda", f"{name}: R on {num.Rbuf.device}")
     t_ref = []
+    tall = any(bq.FR > QR_KERNEL_ROWS for lv in S.levels for bq in lv)
     for _ in range(QR_REPS):
+        n0 = front_qr.launches
         t, again = host_time(lambda: qr_factorize(A, S, common=cm))
+        launches = front_qr.launches - n0
+        check(launches > 0 if tall else launches == 0,
+              f"{name}: {launches} qr_panel launches a factorization "
+              f"(fronts above {QR_KERNEL_ROWS} rows: {tall})")
         t_ref.append(t)
         check(torch.equal(num.Rbuf, again.Rbuf),
               f"{name}: refactorizations are not bit-identical")
@@ -2364,7 +2376,12 @@ def run_qr_cell(name, A, oracle, limit) -> dict:
     log("[profile] " + json.dumps(prof))
     b = np.random.default_rng(QR_SEED).standard_normal(m)
     t_fb, nb = host_time(lambda: qr_factorize(A, S, b=b))
+    n0 = front_qr.launches
     t_fb2, nb2 = host_time(lambda: qr_factorize(A, S, b=b))
+    launches_b = front_qr.launches - n0
+    check(launches_b == launches, f"{name}: {launches_b} qr_panel launches "
+          f"with Q'b, {launches} without")
+    log(f"[qr] {name}: {launches} qr_panel launches a factorization")
     check(torch.equal(nb.Rbuf, nb2.Rbuf) and np.array_equal(nb.qtb, nb2.qtb),
           f"{name}: factorizations with Q'b are not bit-identical")
     check(torch.equal(nb.Rbuf, num.Rbuf),
@@ -2399,6 +2416,7 @@ def run_qr_cell(name, A, oracle, limit) -> dict:
           f"{limit}")
     return dict(matrix=name, m=m, n=n, nnz=int(A.nnz), **stats,
                 qr_symbolic_s=t_sym, first_factorize_s=t_first,
+                qr_panel_launches=launches,
                 refactor_ms=t_med * 1e3,
                 refactor_ms_all=[t * 1e3 for t in t_ref],
                 bit_identical_refactor=True,
@@ -2413,6 +2431,40 @@ def run_qr_cell(name, A, oracle, limit) -> dict:
                 host_f64_factor_s=t_h, min_abs_diag=float(dg.min()),
                 diag_vs_f64_rel=diag_rel, **quality,
                 oracle_s=t_o, vs_oracle_rel=err, limit=limit)
+
+
+def qr_panel_kernel_line(launches, dev_kind):
+    """The QR program's blocked Householder QR of its tall fronts
+    (tools/bench_qr_front.py) at the heights of unwrap3d_64's fronts: one
+    CTA's, ~10,000 rows and the 38,400-row root, each first held against
+    its plain version (QR, tau and Q'b within 1e-12, a repeat and R with b
+    bit-identical), then timed as a CUDA graph beside the plain version,
+    torch.geqrf with torch.ormqr, and the bound; ``launches`` counts the
+    panel kernel's launches on the QR path."""
+    import torch
+    from suitesparse_tpu_torch.tools import bench_qr_front
+    check(launches > 0, "the QR path never launched qr_panel")
+    rng = torch.Generator().manual_seed(QR_SEED)
+    rows = []
+    for shape in bench_qr_front.SHAPES:
+        got = bench_qr_front.check(rng, shape)
+        got.update(bench_qr_front.time_shape(shape))
+        log(f"[kernel] qr_panel {json.dumps(got)}")
+        rows.append(got)
+    root = rows[-1]
+    return dict(name="qr_panel", route="cuda",
+                source="suitesparse_tpu_torch/csrc/qr_panel.cu",
+                replaces="none (jnp.linalg.qr of each bucket in "
+                         "suitesparse_tpu/qr/spqr.py; on the card "
+                         "cuSOLVER's geqrf and ormqr)",
+                launches=launches, ms=root["kernel_ms"],
+                plain_ms=root["plain_ms"], bound_ms=root["bound_ms"],
+                bound_by="flops", library_ms=root["library_ms"],
+                shapes=rows,
+                timed_as="front_qr (panel kernel and float64 GEMMs) with "
+                         "one right-hand side on the (B, FR, FC) fronts, a "
+                         f"CUDA graph replayed {bench_qr_front.REPS} times "
+                         f"between CUDA events, on {dev_kind}")
 
 
 def qr_cells():
@@ -2584,8 +2636,9 @@ def run_qr(probes) -> dict:
     """The [qr] phase: the least-squares cells and the keep_q paths, with
     the counts of the port's four kernels read (none lies on the QR path),
     then the Factorize front door with block_chol counted per matrix."""
+    from suitesparse_tpu_torch.qr.spqr import front_qr
     out = dict(cells=[])
-    for k in probes:
+    for k in probes + (front_qr,):
         k.launches = 0                 # the QR path's count starts here
     for name, A, oracle, limit in qr_cells():
         row = run_qr_cell(name, A, oracle, limit)
@@ -2595,9 +2648,11 @@ def run_qr(probes) -> dict:
     out["keep_q"] = run_qr_keep_q()
     log(f"[qr] {json.dumps(out['keep_q'])}")
     qr_launches = {k.__name__: k.launches for k in probes}
-    log(f"[main] kernel launches on the QR path: {json.dumps(qr_launches)}")
+    log(f"[main] kernel launches on the QR path: {json.dumps(qr_launches)}; "
+        f"qr_panel {front_qr.launches}")
     check(not any(qr_launches.values()),
           f"a kernel of the port ran on the QR path: {qr_launches}")
+    out["qr_panel_launches"] = front_qr.launches
     out["front_door"] = run_front_door(probes[0])
     for row in out["front_door"]:
         log(f"[qr] front door {json.dumps(row)}")
@@ -2875,10 +2930,14 @@ def main() -> int:
     log(f"[time] lu phase done at {time.perf_counter() - t_start:.1f} s")
     free_device_memory()
 
-    # the QR family: no kernel of the port lies on the QR path (the
-    # reference's QR is jnp.linalg.qr per bucket); the Factorize front
-    # door's SPD branch runs block_chol
-    run_qr(probes)
+    # the QR family: the fronts above 256 rows run the panel kernel
+    # qr_panel (the reference's QR is jnp.linalg.qr per bucket), none of
+    # the four others; the Factorize front door's SPD branch runs
+    # block_chol
+    qr = run_qr(probes)
+    free_device_memory()
+    qline = qr_panel_kernel_line(qr["qr_panel_launches"], kind)
+    free_device_memory()
     log(f"[time] qr phase done at {time.perf_counter() - t_start:.1f} s")
 
     # the distributed layer: ranks in processes of their own on this card;
@@ -2887,7 +2946,7 @@ def main() -> int:
     log(f"[time] dist phase done at {time.perf_counter() - t_start:.1f} s")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {smi}")
-    print(json.dumps({"kernels": [kline, eline, bline] + dlines}),
+    print(json.dumps({"kernels": [kline, eline, bline, qline] + dlines}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,11 +14,17 @@ the reference's, built with NumPy a supernode, a bucket or a level at a
 time, so the symbolic objects are identical.  The numeric phase is one
 device program (``qr_program``, a captured CUDA graph on the card) over
 the values put in the factored order by a map made once per pattern
-(``_qr_value_map``): per bucket one batched ``torch.geqrf`` and, with a
-right-hand side, one ``torch.ormqr`` that applies the fronts' Householder
-reflectors to it, as SPQR does (no Q is formed); every assembly and
-output scatter is a non-atomic indexed write through sorted, unique maps,
-so two refactorizations on the card are bit-identical.  The fronts are
+(``_qr_value_map``).  On the card, per bucket, the real fronts above 256
+rows go through ``front_qr``: a blocked Householder QR whose panels are
+the hand-written kernel ``csrc/qr_panel.cu``, which also applies each
+reflector to up to 32 right-hand sides as SPQR carries B beside the front
+(no Q is formed), and whose trailing updates are float64 GEMMs; the other
+buckets (at most 256 rows or complex), and every bucket on the host, take
+one batched ``torch.geqrf`` and, with a right-hand side, one
+``torch.ormqr``.  Both write LAPACK's layout, which the output maps read.
+Every assembly and output scatter is a non-atomic indexed write through
+sorted, unique maps and the panel kernel sums in a fixed order, so two
+refactorizations on the card are bit-identical.  The fronts are
 factored in float64 (complex128) whatever R's dtype, and a float32 R is
 rounded once as each front writes it (``front_dtype``).  ``keep_q`` also
 keeps each front's complete Q on the host (``qr_qmult``).  R x = c runs on
@@ -29,6 +35,7 @@ layout of the Cholesky factor's panels.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -42,6 +49,7 @@ from ..cholesky.symbolic import Symbolic, analyze
 from ..cholesky.super_numeric import (NumericPlan, _index, _solve_factor,
                                       build_plan, solve_program,
                                       sorted_scatter_maps)
+from ..utils import cuda_build
 from ..utils.device import (default_dtype, numpy_dtype, resolve_device,
                             torch_dtype)
 from ..utils.programs import (DeviceProgram, PatternMap, cached_program,
@@ -584,17 +592,251 @@ def front_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.complex128 if dtype.is_complex else torch.float64
 
 
+# On the card the fronts above QR_KERNEL_ROWS rows, in float64, are
+# factored by ``front_qr``: a blocked Householder QR whose panels of
+# QR_PANEL columns are the hand-written kernel csrc/qr_panel.cu and whose
+# trailing updates are float64 GEMMs, QR_OUTER columns at a time.  Smaller
+# fronts stay with cuSOLVER's batched geqrf, and the host with LAPACK's.
+QR_KERNEL_ROWS = 256
+QR_PANEL = 32
+QR_OUTER = 128
+QR_PANEL_RHS = 32             # right-hand sides the panel kernel carries
+# csrc/qr_panel.cu's shape: warps a CTA (kWarps), the rows a thread may
+# hold, the largest cluster (kClusterMax) and the doubles of one CTA's
+# message (kMsg); a thread holds 8 rows while CTAs are free
+_PANEL_WARPS = 16
+_PANEL_RPT = (8, 16, 24, 32)
+_PANEL_CLUSTER = 16
+_PANEL_MSG = 2 * QR_PANEL + 2 * QR_PANEL_RHS
+_PANEL_RPT_PREF = 8
+
+
+def panel_tiling(rows: int, sms: int) -> Optional[tuple]:
+    """(G, rpt) of a panel of ``rows`` rows on a card of ``sms`` SMs: the
+    CTAs that hold each front's rows (1: one CTA; up to 16: a cluster;
+    more: a cooperative grid of at most one CTA an SM) and the rows each
+    thread of their 16 warps holds; None where the rows do not fit."""
+    G = -(-rows // (_PANEL_WARPS * _PANEL_RPT_PREF))
+    if G > _PANEL_CLUSTER:
+        G = min(G, sms)
+    need = -(-rows // (G * _PANEL_WARPS))
+    return next(((G, r) for r in _PANEL_RPT if r >= need), None)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def front_qr_takes(FR: int, dtype: torch.dtype,
+                   device: torch.device) -> bool:
+    """Whether ``front_qr`` factors a bucket of FR-row fronts in ``dtype``
+    on ``device``: real float64 fronts above QR_KERNEL_ROWS rows on the
+    card, no taller than a grid of one CTA an SM holds (SMs x 512 rows,
+    67,584 on an H100).  The host keeps LAPACK's blocked geqrf, which
+    ``front_qr_plain``'s column-by-column arithmetic does not beat."""
+    return (device.type == "cuda" and FR > QR_KERNEL_ROWS
+            and dtype == torch.float64
+            and panel_tiling(FR, _sm_count(device)) is not None)
+
+
+def _larfb(Ct: torch.Tensor, Vt: torch.Tensor, T: torch.Tensor) -> None:
+    """C = (I - V T V')' C in place, through C's transpose ``Ct`` (B, nc,
+    m), ``Vt`` = V' (B, k, m) and T (B, k, k): three batched GEMMs."""
+    Y = torch.bmm(torch.bmm(Ct, Vt.transpose(1, 2)), T)
+    Ct.baddbmm_(Y, Vt, alpha=-1.0)
+
+
+def _front_qr(W: torch.Tensor, WB: Optional[torch.Tensor], panel) -> tuple:
+    """Blocked Householder QR of the (B, FR, FC) fronts ``W``: blocks of
+    QR_OUTER columns, each factored QR_PANEL columns at a time by
+    ``panel``, which also writes each panel's T and V and carries ``WB``;
+    each panel's block reflector updates the rest of its outer block and,
+    where columns lie beyond the block, the block's T is merged from its
+    panels' (T12 = -T11 V1'V2 T22) and one block reflector of QR_OUTER
+    columns updates the rest of the front."""
+    B, FR, FC = W.shape
+    At = W.transpose(1, 2).contiguous()       # each front column-major
+    K = min(FR, FC)
+    tau = W.new_zeros((B, K))
+    tld = min(QR_OUTER, K)
+    T = W.new_zeros((B, tld, tld))
+    Vt = W.new_empty((B, tld, FR))
+    for j0 in range(0, K, QR_OUTER):
+        jb, m = min(QR_OUTER, K - j0), FR - j0
+        beyond = j0 + jb < FC
+        for p0 in range(j0, j0 + jb, QR_PANEL):
+            pb, l0 = min(QR_PANEL, j0 + jb - p0), p0 - j0
+            panel(At, tau, T, Vt, WB, p0, pb, j0)
+            Vp, Tp = Vt[:, l0:l0 + pb, l0:m], T[:, l0:l0 + pb, l0:l0 + pb]
+            if p0 + pb < j0 + jb:
+                _larfb(At[:, p0 + pb:j0 + jb, p0:], Vp, Tp)
+            if l0 and beyond:
+                S = torch.bmm(Vt[:, :l0, l0:m], Vp.transpose(1, 2))
+                T[:, :l0, l0:l0 + pb].baddbmm_(
+                    torch.bmm(T[:, :l0, :l0], S), Tp, beta=0.0, alpha=-1.0)
+        if beyond:
+            _larfb(At[:, j0 + jb:, j0:], Vt[:, :jb, :m], T[:, :jb, :jb])
+    return At.transpose(1, 2), tau, WB
+
+
+def _panel_plain(At, tau, T, Vt, WB, p0: int, pb: int, j0: int) -> None:
+    """The panel kernel's arithmetic in PyTorch, vectorized over the
+    fronts: for each column j, dlarfg from ||x||^2 below the diagonal and
+    the sums x' a_k, x' b_c of the update before it (beta =
+    -sign(alpha) sqrt(alpha^2 + ||x||^2), then tau and the scale of v from
+    one division by beta (alpha - beta)); reflector j applied
+    to the later columns and to b; T's column j from V's row j and
+    V' v_j; then V written with its unit diagonal and zeros above."""
+    P = At[:, p0:p0 + pb, p0:]                # P[:, k, r] = A[p0 + r, p0 + k]
+    Bv = None if WB is None else WB[:, p0:, :]
+    l0 = p0 - j0
+    Tb = T[:, l0:l0 + pb, l0:l0 + pb]
+    Tb.zero_()
+    for j in range(pb):
+        x = P[:, j, j + 1:]
+        alpha = P[:, j, j].clone()
+        xn2 = (x * x).sum(-1)
+        u = (P[:, j + 1:, j + 1:] * x[:, None, :]).sum(-1)
+        wb = None if Bv is None else (x[:, :, None] * Bv[:, j + 1:]).sum(1)
+        nz = xn2 != 0
+        beta = torch.where(nz, -torch.copysign(
+            (alpha * alpha + xn2).sqrt(), alpha), alpha)
+        d = alpha - beta
+        q = 1.0 / torch.where(nz, beta * d, 1.0)
+        tj = torch.where(nz, -d * d * q, 0.0)
+        scal = torch.where(nz, beta * q, 0.0)
+        v = x * scal[:, None]
+        td = tj[:, None] * (P[:, j + 1:, j] + u * scal[:, None])
+        P[:, j + 1:, j] -= td
+        P[:, j + 1:, j + 1:] -= td[:, :, None] * v[:, None, :]
+        P[:, j, j] = beta
+        P[:, j, j + 1:] = v
+        if Bv is not None:
+            tdb = tj[:, None] * (Bv[:, j] + wb * scal[:, None])
+            Bv[:, j] -= tdb
+            Bv[:, j + 1:] -= v[:, :, None] * tdb[:, None, :]
+        if j:
+            y = P[:, :j, j] + (P[:, :j, j + 1:] * v[:, None, :]).sum(-1)
+            Tb[:, :j, j] = -tj[:, None] * torch.bmm(
+                Tb[:, :j, :j], y[:, :, None])[:, :, 0]
+        Tb[:, j, j] = tj
+        tau[:, p0 + j] = tj
+    V = P.clone()
+    r = torch.arange(P.shape[2], device=P.device)
+    k = torch.arange(pb, device=P.device)[:, None]
+    V.masked_fill_(r < k, 0.0)
+    V[:, k[:, 0], k[:, 0]] = 1.0
+    Vt[:, l0:l0 + pb, :l0] = 0.0
+    Vt[:, l0:l0 + pb, l0:l0 + P.shape[2]] = V
+
+
+def _panel_kernel(At, tau, T, Vt, WB, p0: int, pb: int, j0: int,
+                  ctr_pool: Optional[torch.Tensor] = None) -> None:
+    """One launch of csrc/qr_panel.cu a batch of fronts: all of them where
+    a front's rows fit one CTA or a cluster, else as many fronts as the
+    card holds at one CTA an SM, with the grid tier's exchange buffer and
+    barrier counters (zeroed: front b's of the panel at p0 is
+    ``ctr_pool[(p0 // QR_PANEL) * B + b]``)."""
+    B, FC, FR = At.shape
+    G, rpt = panel_tiling(FR - p0, _sm_count(At.device))
+    kb = 0 if WB is None else WB.shape[2]
+    per = B if G <= _PANEL_CLUSTER else max(1, _sm_count(At.device) // G)
+    for b0 in range(0, B, per):
+        nb = min(per, B - b0)
+        msg = ctr = None
+        if G > _PANEL_CLUSTER:
+            msg = At.new_empty(2 * G * nb * _PANEL_MSG)
+            ctr = ctr_pool[(p0 // QR_PANEL) * B + b0:]
+        cuda_build.launch(
+            "sstpu_qr_panel_f64", At, At.data_ptr(), tau.data_ptr(),
+            T.data_ptr(), Vt.data_ptr(), WB.data_ptr() if kb else None,
+            None if msg is None else msg.data_ptr(),
+            None if ctr is None else ctr.data_ptr(), FR, FC, tau.shape[1],
+            p0, pb, j0, T.shape[1], nb, b0, G, rpt, kb)
+        front_qr.launches += 1
+
+
+def front_qr_plain(W: torch.Tensor, WB: Optional[torch.Tensor] = None
+                   ) -> tuple:
+    """Plain PyTorch ``front_qr``: the same panels, T and block reflectors,
+    each panel by ``_panel_plain`` (counted in ``launches``)."""
+    def panel(*args):
+        _panel_plain(*args)
+        front_qr_plain.launches += 1
+    return _front_qr(W, WB, panel)
+
+
+front_qr_plain.launches = 0
+
+
+def front_qr(W: torch.Tensor, WB: Optional[torch.Tensor] = None) -> tuple:
+    """Householder QR of a bucket's (B, FR, FC) float64 fronts ``W``, as
+    geqrf gives it, and Q'B of their right-hand sides ``WB`` (B, FR, k),
+    as ormqr gives it: (QR, tau, QtB).  QR (B, FR, FC) is column-major
+    (LAPACK's layout: R on and above the diagonal, the Householder vectors
+    below), tau (B, min(FR, FC)); QtB is None without right-hand sides.
+    The panels carry up to QR_PANEL_RHS right-hand sides (``WB``, updated
+    in place, is then QtB); more are left out of the factorization and
+    given Q' by one ormqr from its reflectors, so R never depends on B.
+
+    Stands in for the reference's ``jnp.linalg.qr`` of each bucket
+    (suitesparse_tpu/qr/spqr.py:366, ``qr_factorize``'s level loop; no
+    Pallas kernel) and for geqrf and ormqr on the card.  What bounds it is
+    the fronts' work as ``benchmark/harness/qr_counts.py`` counts it: 2 c^2
+    (f - c/3) flops and 2 f (c + 1) entries moved for a front of f rows and
+    c columns.  The panels (csrc/qr_panel.cu: reflectors, tau, T and b's
+    update, one launch a panel, counted in ``launches``) are latency
+    bound; the trailing updates carry the flops as float64 GEMMs on the
+    tensor cores, QR_OUTER columns deep.  A CPU tensor takes
+    ``front_qr_plain``; a CUDA tensor launches the kernel or raises."""
+    if WB is not None and WB.shape[-1] > QR_PANEL_RHS:
+        QR, tau, _ = front_qr(W, None)
+        return QR, tau, torch.ormqr(QR, tau, WB, left=True, transpose=True)
+    if W.device.type == "cpu":
+        return front_qr_plain(W, WB)
+    if W.device.type != "cuda":
+        raise ValueError(f"front_qr: unsupported device {W.device}")
+    if W.dtype != torch.float64 or W.dim() != 3:
+        raise TypeError(f"front_qr: (B, FR, FC) float64 fronts, got "
+                        f"{tuple(W.shape)} {W.dtype}")
+    B, FR, FC = W.shape
+    if WB is not None and (WB.dtype != W.dtype or WB.device != W.device
+                           or tuple(WB.shape[:2]) != (B, FR)
+                           or WB.dim() != 3 or not WB.is_contiguous()):
+        raise ValueError("front_qr: WB must be a contiguous (B, FR, k) "
+                         "float64 tensor beside W")
+    tiling = panel_tiling(FR, _sm_count(W.device))
+    if tiling is None:
+        raise ValueError(f"front_qr: {FR} rows exceed one CTA an SM")
+    # the grid tier's barrier counters, every panel's, zeroed once
+    pool = None
+    if tiling[0] > _PANEL_CLUSTER:
+        pool = torch.zeros(-(-min(FR, FC) // QR_PANEL) * B,
+                           dtype=torch.int32, device=W.device)
+    return _front_qr(W, WB, functools.partial(_panel_kernel, ctr_pool=pool))
+
+
+# Launches of the kernel: one for each call above, and for each replay of a
+# captured device program the number its capture recorded (a replay makes
+# no Python call; utils/programs.py adds them)
+front_qr.launches = 0
+
+
 def _qr_levels(S: QRSymbolic, maps: list, av: torch.Tensor,
                bk: Optional[torch.Tensor], Qs: Optional[list] = None):
     """The level loop: (Rbuf, qtb) from the values ``av`` in the factored
     order and the right-hand sides ``bk`` (m, k) or None (qtb is then
     None).  Each bucket's fronts are assembled from A's rows and their
-    children's C blocks (one slice of the C buffer, ``_c_layout``),
-    factored by one batched geqrf, and their R rows, C blocks and (with
-    ``bk``) Q'B rows, from one ormqr, scattered out.  The fronts, C blocks
-    and Q'B are in ``front_dtype``; Rbuf is in ``av``'s dtype, qtb in the
-    fronts'.  ``Qs`` (a list) collects each bucket's complete Q on the
-    device, in ``av``'s dtype."""
+    children's C blocks (one slice of the C buffer, ``_c_layout``), with
+    ``bk`` their right-hand sides beside them, then factored -- by
+    ``front_qr`` where ``front_qr_takes`` the bucket (real fronts above
+    QR_KERNEL_ROWS rows on the card), which carries up to QR_PANEL_RHS
+    right-hand sides through its panels, else by one batched geqrf and
+    one ormqr -- and their R rows, C blocks and Q'B rows
+    scattered out.  The fronts, C blocks and Q'B are in ``front_dtype``;
+    Rbuf is in ``av``'s dtype, qtb in the fronts'.  ``Qs`` (a list)
+    collects each bucket's complete Q on the device, in ``av``'s dtype."""
     Rbuf = av.new_zeros(S.total_R + 1)
     av = av.to(front_dtype(av.dtype))
     Cbuf = av.new_zeros(S.total_C + 1)
@@ -614,7 +856,23 @@ def _qr_levels(S: QRSymbolic, maps: list, av: torch.Tensor,
             if "c" in mp:
                 lo, hi, dst = mp["c"]
                 W[dst] = Cbuf[lo:hi]
-            QR, tau = torch.geqrf(W.view(B, FR, FC))
+            W = W.view(B, FR, FC)
+            WB = None
+            if bk is not None:
+                WB = av.new_zeros((B * FR, k))
+                src, dst = mp["b"]
+                WB[dst] = bk[src]
+                if "cb" in mp:
+                    src, dst = mp["cb"]
+                    WB[dst] = CBbuf[src]
+                WB = WB.view(B, FR, k)
+            if front_qr_takes(FR, W.dtype, W.device):
+                QR, tau, QtB = front_qr(W, WB)
+            else:
+                QR, tau = torch.geqrf(W)
+                QtB = None if WB is None else torch.ormqr(
+                    QR, tau, WB, left=True, transpose=True)
+            del W
             F = QR.transpose(1, 2).reshape(-1)    # a view when column-major
             src, dst = mp["r"]
             Rbuf[dst] = F[src].to(Rbuf.dtype)
@@ -622,16 +880,9 @@ def _qr_levels(S: QRSymbolic, maps: list, av: torch.Tensor,
             Cbuf[dst] = F[src]
             if Qs is not None:
                 Qs.append(_complete_q(QR, tau).to(Rbuf.dtype))
-            if bk is None:
+            if QtB is None:
                 continue
-            WB = av.new_zeros((B * FR, k))
-            src, dst = mp["b"]
-            WB[dst] = bk[src]
-            if "cb" in mp:
-                src, dst = mp["cb"]
-                WB[dst] = CBbuf[src]
-            QtB = torch.ormqr(QR, tau, WB.view(B, FR, k), left=True,
-                              transpose=True).reshape(-1, k)
+            QtB = QtB.reshape(-1, k)
             src, dst = mp["cbout"]
             CBbuf[dst] = QtB[src]
             src, dst = mp["qtb"]
@@ -655,7 +906,8 @@ def qr_program(S: QRSymbolic, dtype, device, k: int = 0) -> DeviceProgram:
             return Rbuf, (av.new_zeros((S.n, 0)) if qtb is None else qtb)
         return body
 
-    return cached_program(S.plan._cache, ("qr", dt, dev, int(k)), make, dev)
+    return cached_program(S.plan._cache, ("qr", dt, dev, int(k)), make, dev,
+                          counters=(front_qr,))
 
 
 def _qr_value_map(S: QRSymbolic, A: SparseCSC) -> PatternMap:

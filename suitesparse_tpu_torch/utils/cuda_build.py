@@ -41,6 +41,7 @@ ENTRY_POINTS = {
     "sstpu_bcsr_spmm_f32": ("bcsr_spmm", "ppppiiiii"),
     "sstpu_pf_extend_add_f32": ("pf_extend_add", "pppppiiiiii"),
     "sstpu_pf_extend_add_f64": ("pf_extend_add", "pppppiiiiii"),
+    "sstpu_qr_panel_f64": ("qr_panel", "pppppppiiiiiiiiiiii"),
     "sstpu_scale_blocks_f32": ("dispatch_probe", "ppi"),
     "sstpu_scale_gather_f32": ("dispatch_probe", "pppii"),
 }

@@ -1112,3 +1112,56 @@ def test_qr_program_replay_is_its_eager_body_and_refactors_repeat():
     c = spqr.qr_factorize(A, S, b=b, device="cpu")
     xc = spqr.qr_rsolve(c, c.qtb[:, 0])
     assert np.abs(x - xc).max() <= 1e-5 * np.abs(xc).max()
+
+
+@pytest.mark.gpu
+def test_qr_program_takes_front_qr_on_the_card():
+    """On the card qr_factorize factors the real buckets above 256 rows
+    with front_qr: the panel kernel's launches rise, R agrees with the
+    host's LAPACK factorization up to row signs within 1e-12, and R with
+    QR_PANEL_RHS + 1 right-hand sides (Q' applied by ormqr after the
+    panels) is R with one (carried through them), bit for bit."""
+    _need_card()
+    from suitesparse_tpu_torch.io.generators import grad3d_tik
+    from suitesparse_tpu_torch.qr import spqr
+    A = grad3d_tik(9, 0.1)
+    S = spqr.qr_symbolic(A)
+    assert any(bq.FR > spqr.QR_KERNEL_ROWS for lv in S.levels for bq in lv)
+    rng = np.random.default_rng(24)
+    b = rng.standard_normal((A.shape[0], spqr.QR_PANEL_RHS + 1))
+    before = spqr.front_qr.launches
+    one = spqr.qr_factorize(A, S, b=b[:, :1], device="cuda",
+                            dtype=np.float64)
+    assert spqr.front_qr.launches > before
+    many = spqr.qr_factorize(A, S, b=b, device="cuda",
+                             dtype=np.float64)
+    assert torch.equal(many.Rbuf, one.Rbuf)
+    host = spqr.qr_factorize(A, S, b=b[:, :1], device="cpu")
+    R, Rh = spqr.qr_get_r(one).toarray(), spqr.qr_get_r(host).toarray()
+    sg = np.sign(np.diag(R)) * np.sign(np.diag(Rh))
+    assert np.abs(R - sg[:, None] * Rh).max() <= 1e-12 * np.abs(Rh).max()
+    q, qh = one.qtb[:, 0], host.qtb[:, 0]
+    assert np.abs(q - sg * qh).max() <= 1e-12 * np.abs(qh).max()
+    assert np.abs(many.qtb[:, 0] - q).max() <= 1e-12 * np.abs(qh).max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", [0, 1, 2, 3])
+def test_qr_panel_kernel_matches_plain_at_each_tier(tier):
+    """front_qr (csrc/qr_panel.cu and float64 GEMMs) against front_qr_plain
+    on the card at one front height a way the kernel holds the rows (one
+    CTA, a cluster, a cooperative grid, and the tallest grid the route
+    takes, 32 rows a thread): QR, tau and Q'b within 1e-12 of the largest
+    entry, a repeat and R with b bit-identical."""
+    _need_card()
+    from suitesparse_tpu_torch.qr import spqr
+    from suitesparse_tpu_torch.tools import bench_qr_front
+    sms = spqr._sm_count(torch.device("cuda"))
+    shape = (bench_qr_front.CHECKS + (bench_qr_front.tallest(sms),))[tier]
+    G, rpt = spqr.panel_tiling(shape[1], sms)
+    assert (G == 1, 1 < G <= spqr._PANEL_CLUSTER, G > spqr._PANEL_CLUSTER,
+            (G, rpt) == (sms, 32))[tier]
+    before = spqr.front_qr.launches
+    got = bench_qr_front.check(torch.Generator().manual_seed(tier), shape)
+    assert got["repeat_identical"] and got["r_with_b_identical"]
+    assert spqr.front_qr.launches > before

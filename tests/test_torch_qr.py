@@ -8,6 +8,7 @@ the same signs; rank and tol are equal; solutions, qr_qmult and spqr_*
 agree within 1e-10 (1e-12 where both run on the same factor).  The cases
 of tests/test_qr.py are mirrored on the port with their own tolerances."""
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from suitesparse_tpu.core.common import default_common as ref_common
 from suitesparse_tpu.core.sparse import SparseCSC as RefCSC
 
 from suitesparse_tpu_torch.io.generators import grad3d as _grad
+from suitesparse_tpu_torch.io.generators import grad3d_tik
 import suitesparse_tpu_torch.models as port_models
 import suitesparse_tpu_torch.qr as port_qr
 from suitesparse_tpu_torch.core.common import default_common as port_common
@@ -61,6 +63,9 @@ CASES = {
     "square": lambda: _rand_tall(80, 80, 0.1, 2),
     "complex": lambda: _complex_tall(50, 30, 0.2, 13),
     "grad3d_4": lambda: _grad(4),
+    # [G; 0.1 I] of the 9^3 gradient: 4 buckets of fronts above 256 rows
+    # (up to 512 x 256), the card's front_qr route
+    "grad3d_tik_9": lambda: grad3d_tik(9, 0.1).to_scipy(),
 }
 
 
@@ -149,20 +154,29 @@ def _rel(a, b):
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_factor_matches_reference_up_to_row_signs(name):
+@functools.lru_cache(maxsize=None)
+def _reference_factor(name):
+    """The case's matrix (Tikhonov rows below grad3d_4), two right-hand
+    sides and the reference's symbolic and factorization with them."""
     S = CASES[name]()
     if name == "grad3d_4":      # full column rank: the Tikhonov form
         S = sp.vstack([S, 2.0 * sp.identity(S.shape[1])]).tocsc()
-    Ar, Ap = _pair(S)
     m = S.shape[0]
     b = np.random.default_rng(5).standard_normal((m, 2))
     if np.iscomplexobj(S.data):
         b = b + 1j * np.random.default_rng(6).standard_normal((m, 2))
+    Ar = RefCSC.from_scipy(sp.csc_matrix(S))
     Sr = ref_qr.qr_symbolic(Ar, ref_common())
-    Sp = port_qr.qr_symbolic(Ap, port_common())
-    cr, cp = ref_common(), port_common()
+    cr = ref_common()
     nr = ref_qr.qr_factorize(Ar, Sr, b=b, common=cr)
+    return S, b, Sr, nr, cr.info["qr_rank"]
+
+
+def _factor_matches_reference(name):
+    S, b, Sr, nr, ref_rank = _reference_factor(name)
+    Ap = PortCSC.from_scipy(sp.csc_matrix(S))
+    Sp = port_qr.qr_symbolic(Ap, port_common())
+    cp = port_common()
     np_ = port_qr.qr_factorize(Ap, Sp, b=b, common=cp, device=CPU)
     hr = np.asarray(nr.Rbuf)
     hp = np_.Rbuf.numpy()
@@ -179,8 +193,25 @@ def test_factor_matches_reference_up_to_row_signs(name):
                 nr.qtb * np.conj(sr)[:, None]) <= TOL
     assert np_.rank == nr.rank == min(S.shape)
     assert np_.tol == nr.tol
-    assert cp.info["qr_rank"] == cr.info["qr_rank"]
+    assert cp.info["qr_rank"] == ref_rank
     assert cp.status == Status.OK
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_factor_matches_reference_up_to_row_signs(name):
+    _factor_matches_reference(name)
+
+
+def test_front_qr_route_matches_reference_up_to_row_signs(monkeypatch):
+    """The card's route for real fronts above 256 rows -- ``front_qr``,
+    here its plain version with the kernel's arithmetic -- put in place of
+    the host's LAPACK route: R and Q'b against the reference at TOL."""
+    monkeypatch.setattr(
+        port_spqr, "front_qr_takes", lambda FR, dtype, device:
+        FR > port_spqr.QR_KERNEL_ROWS and dtype == torch.float64)
+    before = port_spqr.front_qr_plain.launches
+    _factor_matches_reference("grad3d_tik_9")
+    assert port_spqr.front_qr_plain.launches > before
 
 
 def test_rank_deficient_factor_rank_and_tol_equal():
