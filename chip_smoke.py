@@ -1538,8 +1538,10 @@ def loop_programs(G, tol, max_iter):
     dev = torch.device("cuda")
     n = G.shape[0]
     alg._pagerank(G, 0.85, tol, max_iter, dev)
-    rows, cols, w, _ = G._loop_programs[("pagerank_arrays", torch.float32,
-                                         dev)]
+    # the per-arc weights the compact layout replaced: the same ranks
+    rows, cols, _ = alg._coo_arrays(G, dev)
+    outdeg = torch.clamp(torch.bincount(rows, minlength=n).float(), min=1.0)
+    w = 1.0 / outdeg[rows]
     out = dict(tol=tol, max_iter=max_iter)
     for kind in ("pagerank", "bfs"):
         if kind == "pagerank":

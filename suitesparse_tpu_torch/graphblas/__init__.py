@@ -13,5 +13,5 @@ from .extra import (POSITIONAL_BINOPS, positional_mxm, positional_mxv,
                     pack_csc, unpack_csc, pack_csr, unpack_csr,
                     pack_coo, unpack_coo, pack_full, unpack_full,
                     pack_bitmap, unpack_bitmap)
-from .algorithms import pagerank, bfs_levels, triangle_count
+from .algorithms import pagerank, bfs_levels, triangle_count, compact_graph
 from ..utils.serialize import matrix_serialize, matrix_deserialize

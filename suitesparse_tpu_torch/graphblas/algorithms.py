@@ -9,8 +9,29 @@ step whose condition already failed leaves the state as it was (a
 ``torch.where`` on a device flag, which also advances the iteration
 counter), and the host reads the flag and the counter once per program
 run.  So a loop of m iterations syncs ceil(m / steps) times, and stops at
-the reference's iteration with the same state."""
+the reference's iteration with the same state.
+
+PageRank reads only the graph's pattern (each arc i -> j weighs
+1 / outdeg(i), whatever value it stores), which ``compact_graph`` puts on
+the device once per graph: int32 source ids in CSC order, the columns'
+offsets, and the inverse out-degree per vertex, about 4 bytes an arc.  A
+power step gathers the per-vertex contribution r / outdeg through the
+source ids and sums it over each destination's sorted segment: the same
+products, in the same order, as the reference's per-arc weights, so the
+ranks are the per-arc form's bit for bit.  A symmetric matrix stored by
+one triangle (``stype`` != 0) is an undirected graph: the import expands
+it on the device.
+
+Spans and counters (``utils/trace``): ``graphblas.pagerank`` over a call,
+inside it ``.import`` (the device arrays made, a graph's first call; its
+h2d bytes), ``.program`` (each loop-program run), ``.sync`` (the flag's
+read) and ``.download`` (the ranks to the host); the counters
+``graphblas.pagerank.iterations``, ``.steps_run`` (predicated steps run,
+those after the stop included) and ``.program_runs``."""
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -18,6 +39,7 @@ import torch
 from ..core.sparse import SparseCSC
 from ..utils.device import default_dtype, resolve_device, torch_dtype
 from ..utils.programs import cached_program
+from ..utils.trace import count, moved, span
 from .core import GrBMatrix, segment_reduce
 
 # predicated iterations a loop program runs between two reads of its
@@ -26,6 +48,9 @@ from .core import GrBMatrix, segment_reduce
 # PERF.md); 8 runs at most 7 steps past the stop, where a step costs the
 # device 1.2 ms
 LOOP_STEPS = 8
+# entries a chunk of the import's device work: bounds its temporaries
+IMPORT_CHUNK = 1 << 25
+PR = "graphblas.pagerank"
 
 
 def _coo_arrays(A: SparseCSC, dev):
@@ -49,34 +74,159 @@ def _pattern_cache(A) -> dict:
     return cache
 
 
-def _pagerank_step(rows, cols, wvals, lengths, n, damping, r):
-    """One power step: y = W' r over plus_times (terms sorted by
-    destination column), damping and the dangling mass."""
-    y = segment_reduce("plus", wvals * r[rows], cols, n,
-                       indices_are_sorted=True, lengths=lengths)
+@dataclasses.dataclass(eq=False)
+class CompactGraph:
+    """A graph's pattern on one device as PageRank's power step reads it:
+    ``rows`` (int32) the source of each arc, sorted by destination (CSC
+    order), ``offsets`` (int64, n + 1) where each destination's arcs
+    start, ``dinv`` 1 / max(outdeg, 1) per vertex in the ranks' dtype."""
+
+    rows: torch.Tensor
+    offsets: torch.Tensor
+    dinv: torch.Tensor
+    n: int
+
+    @property
+    def arcs(self) -> int:
+        return self.rows.numel()
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.dinv.dtype
+
+
+def _chunks(total: int):
+    for a in range(0, total, IMPORT_CHUNK):
+        yield a, min(a + IMPORT_CHUNK, total)
+
+
+def _upload_rows(indices: np.ndarray, dev) -> torch.Tensor:
+    """The host row ids as int32 on ``dev``, cast there a chunk at a
+    time (no int32 copy on the host, no int64 array on the device)."""
+    out = torch.empty(len(indices), dtype=torch.int32, device=dev)
+    for a, b in _chunks(len(indices)):
+        part = torch.from_numpy(indices[a:b]).to(dev)
+        moved("h2d", part.numel() * part.element_size())
+        out[a:b].copy_(part)
+    return out
+
+
+def _symmetrize(stored, indptr, n: int, lower: bool) -> tuple:
+    """(rows, offsets) of the full pattern of a symmetric matrix stored by
+    its lower (``lower``) or upper triangle in CSC order: each stored
+    entry (i, j), i != j, stands for (j, i) too.  Column j of the result
+    holds the mirrored entries (the stored row j) before its stored ones
+    where the lower triangle is stored, after them where the upper is, so
+    every column stays sorted."""
+    dev = stored.device
+    lens = torch.diff(indptr)
+
+    def part(a, b):
+        """Rows, columns and the off-diagonal mask of entries [a, b)."""
+        r = stored[a:b].long()
+        c = torch.searchsorted(indptr, torch.arange(a, b, device=dev),
+                               right=True) - 1
+        return r, c, r != c
+
+    mirror = torch.zeros(n, dtype=torch.int64, device=dev)
+    for a, b in _chunks(stored.numel()):
+        r, _, off = part(a, b)
+        mirror += torch.bincount(r[off], minlength=n)
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(lens + mirror, 0, out=offsets[1:])
+    rows = torch.empty(int(offsets[-1]), dtype=torch.int32, device=dev)
+    first = offsets[:-1] + (mirror if lower else 0)
+    fill = offsets[:-1] + (0 if lower else lens)
+    for a, b in _chunks(stored.numel()):
+        r, c, off = part(a, b)
+        rows[first[c] + torch.arange(a, b, device=dev) - indptr[c]] = \
+            stored[a:b]
+        # the mirrored entries of each row, in the order of their columns:
+        # a stable sort by row within the chunk, after the earlier chunks'
+        key, order = torch.sort(r[off], stable=True)
+        rank = (torch.arange(key.numel(), device=dev)
+                - torch.searchsorted(key, key))
+        rows[fill[key] + rank] = c[off][order].to(torch.int32)
+        fill += torch.bincount(key, minlength=n)
+    return rows, offsets
+
+
+def compact_graph(A, device=None) -> CompactGraph:
+    """The device layout of the graph ``A`` (a square SparseCSC or a
+    GrBMatrix; A[i, j] != 0 means an arc i -> j; a SparseCSC with
+    ``stype`` != 0 is symmetric, stored by one triangle) on ``device``
+    (None: the card), for ranks in its default float type, made once (the
+    span ``graphblas.pagerank.import``) and cached on ``A``.  Only the
+    pattern is read: no value reaches the device."""
+    dev = resolve_device(device)
+    cache = _pattern_cache(A)
+    key = ("pagerank_graph", dev)
+    got = cache.get(key)
+    if got is None:
+        with span(PR + ".import"):
+            got = cache[key] = _import(
+                A.to_csc() if isinstance(A, GrBMatrix) else A, dev,
+                torch_dtype(default_dtype(dev)))
+    return got
+
+
+def _import(A: SparseCSC, dev, fdt) -> CompactGraph:
+    n = A.shape[0]
+    if A.shape[1] != n:
+        raise ValueError(f"pagerank: the graph's matrix is {A.shape}, not "
+                         f"square")
+    indptr = torch.tensor(A.indptr, dtype=torch.int64, device=dev)
+    moved("h2d", indptr.numel() * 8)
+    rows = _upload_rows(A.indices, dev)
+    if A.stype:
+        rows, offsets = _symmetrize(rows, indptr, n, A.stype < 0)
+    else:
+        offsets = indptr
+    outdeg = torch.zeros(n, dtype=torch.int64, device=dev)
+    for a, b in _chunks(rows.numel()):
+        outdeg += torch.bincount(rows[a:b], minlength=n)
+    dinv = 1.0 / torch.clamp(outdeg.to(fdt), min=1.0)
+    return CompactGraph(rows, offsets, dinv, n)
+
+
+def _pagerank_update(y, r, n, damping):
+    """Damping and the dangling mass, from y = W' r."""
     rnew = damping * y + (1.0 - damping) / n
     return rnew + (torch.sum(r) - torch.sum(rnew)) / n
 
 
-def _pagerank_loop(rows, cols, wvals, n, damping, tol, max_iter,
-                   steps=LOOP_STEPS, cache=None):
-    """The reference's while_loop: returns (rank, iterations run).  Each
-    program run takes ``steps`` predicated steps; ``cache`` (the pattern's,
-    or a new one) keeps the program per (steps, damping, tol, dtype,
-    device)."""
-    dev = wvals.device
+def _pagerank_step(rows, cols, wvals, lengths, n, damping, r):
+    """One power step on per-arc weights: y = W' r over plus_times (terms
+    sorted by destination column), damping and the dangling mass."""
+    y = segment_reduce("plus", wvals * r[rows], cols, n,
+                       indices_are_sorted=True, lengths=lengths)
+    return _pagerank_update(y, r, n, damping)
+
+
+def _compact_step(g: CompactGraph, damping, r):
+    """One power step on the compact layout: r / outdeg gathered through
+    the source ids, summed per destination."""
+    y = torch.segment_reduce(torch.index_select(r * g.dinv, 0, g.rows),
+                             "sum", offsets=g.offsets, axis=0, unsafe=True)
+    return _pagerank_update(y, r, g.n, damping)
+
+
+def _loop(make_step, n, dtype, dev, damping, tol, max_iter, steps, cache):
+    """The reference's while_loop over the power step ``make_step()``
+    makes: returns (rank, iterations run).  Each program run takes
+    ``steps`` predicated steps; ``cache`` (the pattern's, or a new one)
+    keeps the program per (steps, damping, tol, dtype, device)."""
     cache = {} if cache is None else cache
 
     def make():
-        lengths = torch.bincount(cols, minlength=n)
+        step = make_step()
 
         def body(r, st, max_it):
             # st = (iterations run, does the next step run); the reference
             # starts with delta = inf, so the flag starts as it < max_iter
             it, go = st[0], st[1].bool()
             for _ in range(steps):
-                rnew = _pagerank_step(rows, cols, wvals, lengths, n,
-                                      damping, r)
+                rnew = step(r)
                 # compared in the working dtype, as the reference's
                 # condition
                 above_tol = (rnew - r).abs().sum() > tol
@@ -87,8 +237,8 @@ def _pagerank_loop(rows, cols, wvals, n, damping, tol, max_iter,
         return body
 
     prog = cached_program(cache, ("pagerank", int(steps), float(damping),
-                                  float(tol), wvals.dtype, dev), make, dev)
-    r = torch.full((n,), 1.0 / n, dtype=wvals.dtype, device=dev)
+                                  float(tol), dtype, dev), make, dev)
+    r = torch.full((n,), 1.0 / n, dtype=dtype, device=dev)
     # made on the card: an element set from a host value would be a
     # copy that waits for the host
     st = torch.full((2,), int(max_iter > 0), dtype=torch.int64, device=dev)
@@ -97,37 +247,52 @@ def _pagerank_loop(rows, cols, wvals, n, damping, tol, max_iter,
     it = 0
     go = max_iter > 0
     while go:
-        r, st = prog(r, st, max_it)
-        it, go = st.tolist()          # the one host sync of a run
+        with span(PR + ".program"):
+            r, st = prog(r, st, max_it)
+        with span(PR + ".sync"):
+            it, go = st.tolist()      # the one host sync of a run
+        count(PR + ".program_runs")
+        count(PR + ".steps_run", steps)
+    count(PR + ".iterations", it)
     return r, it
+
+
+def _pagerank_loop(rows, cols, wvals, n, damping, tol, max_iter,
+                   steps=LOOP_STEPS, cache=None):
+    """The loop on per-arc weights ``wvals`` (arcs ``rows`` -> ``cols``,
+    sorted by column): returns (rank, iterations run)."""
+    def make_step():
+        lengths = torch.bincount(cols, minlength=n)
+        return functools.partial(_pagerank_step, rows, cols, wvals,
+                                 lengths, n, damping)
+    return _loop(make_step, n, wvals.dtype, wvals.device, damping, tol,
+                 max_iter, steps, cache)
 
 
 def pagerank(A, damping: float = 0.85, tol: float = 1e-9,
              max_iter: int = 100, device=None) -> np.ndarray:
     """PageRank (dpagerank.c demo analog).  A[i,j] != 0 means an edge
-    i -> j.  Runs on ``device`` (None: the card) in its default float type
-    (float64 on the CPU, float32 on the card)."""
-    r, _ = _pagerank(A, damping, tol, max_iter, resolve_device(device))
-    return r.cpu().numpy()
+    i -> j (a SparseCSC with ``stype`` != 0: the symmetric graph of the
+    stored triangle).  Runs on ``device`` (None: the card) in its default
+    float type (float64 on the CPU, float32 on the card), from uniform
+    ranks until the L1 change of a step is at most ``tol`` or ``max_iter``
+    steps ran; the counter ``graphblas.pagerank.iterations``
+    (``utils.trace.counts``) adds the steps it ran."""
+    with span(PR):
+        r, _ = _pagerank(A, damping, tol, max_iter, resolve_device(device))
+        with span(PR + ".download"):
+            out = r.cpu().numpy()
+            moved("d2h", out.nbytes)
+    return out
 
 
 def _pagerank(A, damping, tol, max_iter, dev, steps=LOOP_STEPS):
-    """pagerank's loop on the pattern's cached arrays and program:
+    """pagerank's loop on the pattern's compact layout and cached program:
     (rank tensor, iterations)."""
-    cache = _pattern_cache(A)
-    fdt = torch_dtype(default_dtype(dev))
-    got = cache.get(("pagerank_arrays", fdt, dev))
-    if got is None:
-        Ac = A.to_csc() if isinstance(A, GrBMatrix) else A
-        n = Ac.shape[0]
-        rows, cols, _ = _coo_arrays(Ac, dev)
-        outdeg = torch.clamp(torch.bincount(rows, minlength=n).to(fdt),
-                             min=1.0)
-        got = cache[("pagerank_arrays", fdt, dev)] = (
-            rows, cols, (1.0 / outdeg[rows]).to(fdt), n)
-    rows, cols, wvals, n = got
-    return _pagerank_loop(rows, cols, wvals, n, float(damping), float(tol),
-                          int(max_iter), steps, cache)
+    g = compact_graph(A, dev)
+    return _loop(lambda: functools.partial(_compact_step, g, float(damping)),
+                 g.n, g.dtype, dev, float(damping), float(tol),
+                 int(max_iter), steps, _pattern_cache(A))
 
 
 def _bfs_loop(rows, cols, n, source, steps=LOOP_STEPS, cache=None):

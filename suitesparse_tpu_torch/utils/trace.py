@@ -15,6 +15,10 @@ timings, and ``torch.profiler`` ranges while a profiler records.
     Bytes that the code inside the innermost open span copies: ``"h2d"``
     (host to the program's device), ``"d2h"``, or ``"d2d"`` (within the
     device).  On the CPU the device is the host, so they count host copies.
+``count(name, n)``
+    Adds ``n`` to the process-wide counter ``name`` (``counts()`` reads
+    them): how often something ran where a span's calls do not say it
+    (PageRank's iterations and predicated steps).
 
 A span reads the host's clock and never the device's: it never
 synchronizes, reads no device value and allocates nothing on the device.
@@ -50,8 +54,8 @@ import time
 import torch
 from torch.profiler import record_function
 
-__all__ = ["Call", "RING", "Span", "moved", "nbytes", "reset", "scope",
-           "snapshot", "span", "spanned"]
+__all__ = ["Call", "RING", "Span", "count", "counts", "moved", "nbytes",
+           "reset", "scope", "snapshot", "span", "spanned"]
 
 # calls kept per name
 RING = 65536
@@ -76,13 +80,15 @@ class _Stat:
 
 
 class _State:
-    """One thread's open spans and table: a span touches no lock."""
+    """One thread's open spans, table and counters: a span touches no
+    lock."""
 
-    __slots__ = ("stack", "table")
+    __slots__ = ("stack", "table", "counts")
 
     def __init__(self):
         self.stack = []
         self.table = {}
+        self.counts = {}
 
 
 def _new_state() -> _State:
@@ -197,6 +203,26 @@ def moved(direction: str, n: int) -> None:
         setattr(top, direction, getattr(top, direction) + int(n))
 
 
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to this thread's share of the counter ``name``."""
+    try:
+        state = _local.state
+    except AttributeError:
+        state = _new_state()
+    state.counts[name] = state.counts.get(name, 0) + int(n)
+
+
+def counts() -> dict:
+    """{name: every thread's count summed}, copied."""
+    with _lock:
+        states = list(_threads)
+    out = {}
+    for state in states:
+        for name, n in list(state.counts.items()):
+            out[name] = out.get(name, 0) + n
+    return out
+
+
 def nbytes(obj) -> int:
     """Bytes of a tensor, or of nested tuples and lists of tensors."""
     if isinstance(obj, torch.Tensor):
@@ -229,11 +255,12 @@ def snapshot() -> dict:
 
 
 def reset() -> None:
-    """Empty the table (every thread's) and this thread's stack of open
-    spans."""
+    """Empty the table and the counters (every thread's) and this thread's
+    stack of open spans."""
     with _lock:
         for state in _threads:
             state.table.clear()
+            state.counts.clear()
     state = getattr(_local, "state", None)
     if state is not None:
         state.stack.clear()

@@ -728,8 +728,9 @@ def test_two_numerics_share_one_captured_umf_solve_program():
 @pytest.mark.gpu
 @pytest.mark.parametrize("steps", [1, 3, 8])
 def test_loop_programs_match_the_one_sync_loop_on_the_card(steps):
-    """PageRank and BFS programs of 1, 3 and 8 predicated steps on the
-    card: the one-sync loop's iteration and its ranks and levels bit for
+    """PageRank (the program's own path, on the compact layout) and BFS
+    programs of 1, 3 and 8 predicated steps on the card: the one-sync
+    loop's iteration and its ranks (on per-arc weights) and levels bit for
     bit, with at most ceil(iterations / steps) + 1 host syncs a run once
     the program is captured."""
     _need_card()
@@ -742,11 +743,9 @@ def test_loop_programs_match_the_one_sync_loop_on_the_card(steps):
     w = 1.0 / outdeg[rows]
     for tol, max_iter in ((1e-9, 100), (1e-6, 100), (0.0, 7)):
         r1, it1 = one_sync_pagerank(rows, cols, w, n, tol, max_iter)
-        cache = {}
-        alg._pagerank_loop(rows, cols, w, n, 0.85, tol, max_iter, steps,
-                           cache)
-        (r, it), syncs = host_syncs(lambda: alg._pagerank_loop(
-            rows, cols, w, n, 0.85, tol, max_iter, steps, cache))
+        alg._pagerank(G, 0.85, tol, max_iter, dev, steps)
+        (r, it), syncs = host_syncs(lambda: alg._pagerank(
+            G, 0.85, tol, max_iter, dev, steps))
         assert it == it1 and torch.equal(r, r1), (tol, max_iter)
         assert syncs <= -(-it // steps) + 1, (syncs, it)
     level1, depth = one_sync_bfs(rows, cols, n, 0)
@@ -756,6 +755,46 @@ def test_loop_programs_match_the_one_sync_loop_on_the_card(steps):
         lambda: alg._bfs_loop(rows, cols, n, 0, steps, cache))
     assert d == depth and torch.equal(level, level1)
     assert syncs <= -(-d // steps) + 1, (syncs, d)
+
+
+@pytest.mark.gpu
+def test_compact_pagerank_on_the_card_matches_the_cpu():
+    """The benchmark's kron_g500 graph at scale 16, drawn on the card and
+    held by its lower triangle: the compact PageRank in float32 stops
+    within one iteration of the CPU's float64 and lies within 1e-5 (L1) of
+    the CPU's iterate at its own count; once captured, a call makes one
+    host sync a program run, and no allocation of an arc-sized buffer
+    outside the program's own pool."""
+    _need_card()
+    import importlib.util
+    import pathlib
+    from suitesparse_tpu_torch.core.sparse import SYM_LOWER, SparseCSC
+    from suitesparse_tpu_torch.graphblas import algorithms as alg
+    from suitesparse_tpu_torch.graphblas import compact_graph
+    path = (pathlib.Path(__file__).resolve().parents[1] / "benchmark"
+            / "generators" / "kron_g500.py")
+    spec = importlib.util.spec_from_file_location("gpu_kron_g500", path)
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    L = gen.make(scale=16, edgefactor=16, a=0.57, b=0.19, c=0.19, seed=9)
+
+    def graph():
+        return SparseCSC(L.indptr, L.indices, None, L.shape, stype=SYM_LOWER)
+    G, dev, cpu = graph(), torch.device("cuda"), torch.device("cpu")
+    r64, k64 = alg._pagerank(graph(), 0.85, 1e-4, 20, cpu)
+    alg._pagerank(G, 0.85, 1e-4, 20, dev)                  # capture
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (r, k), syncs = host_syncs(lambda: alg._pagerank(G, 0.85, 1e-4, 20,
+                                                     dev))
+    grew = torch.cuda.max_memory_allocated() - base
+    g = compact_graph(G, dev)
+    assert r.dtype == torch.float32 and abs(k - k64) <= 1
+    assert syncs == -(-k // alg.LOOP_STEPS), (syncs, k)
+    assert grew < 4 * g.arcs // 8, (grew, g.arcs)
+    rk, _ = alg._pagerank(graph(), 0.85, 0.0, k, cpu)
+    assert float((r.cpu().double() - rk).abs().sum()) <= 1e-5
 
 
 def _pf_on_card(k):

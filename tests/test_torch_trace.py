@@ -4,6 +4,7 @@ profiler records, nesting on the profiler's clock, the spans of the
 Cholesky front end and its device programs once per call, cm.info's
 factor times read from them, and Common.tic/toc on the same table."""
 import json
+import threading
 import time
 
 import numpy as np
@@ -25,6 +26,20 @@ def _empty_table():
     trace.reset()
     yield
     trace.reset()
+
+
+def test_counters_add_over_threads_and_reset_with_the_table():
+    trace.count("t.n")
+    trace.count("t.n", 4)
+    other = threading.Thread(target=lambda: trace.count("t.n", 10))
+    other.start()
+    other.join()
+    got = trace.counts()
+    assert got["t.n"] == 15
+    got["t.n"] = 0                  # a copy
+    assert trace.counts()["t.n"] == 15
+    trace.reset()
+    assert "t.n" not in trace.counts()
 
 
 def test_a_span_counts_calls_seconds_and_bytes():
